@@ -11,6 +11,11 @@ shows through the launch counters that the path ran the kernels. One JSON
 line per phase; the line before the last lists the kernels, the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
 code is nonzero. Needs one CUDA device, ``nvcc`` and no network or PyYAML.
+
+    python3 chip_smoke.py --profile
+
+adds a ``main_path_profile`` line: device time by kernel name for one
+batch-64 ``synthesize_batch`` (torch.profiler) and the device's busy share.
 """
 
 from __future__ import annotations
@@ -84,6 +89,32 @@ def vocoder_work(B: int, T: int, c_mel: int, channels: int, rates,
     flops += 2 * 3 * c * t                       # output conv
     wcount += 3 * c
     return B * flops, B * T * c_mel * 4 + B * t * 4 + wcount * wbytes
+
+
+def profile_batch(run, card: str, top: int = 12) -> dict:
+    """Device time of one ``run()`` by kernel name (torch.profiler), and the
+    device's busy share of the host wall time around it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted(((e.key, e.self_device_time_total, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"phase": "main_path_profile", "card": card, "wall_us": wall_us,
+            "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
+            "top": [{"name": n[:80], "us": t, "calls": c}
+                    for n, t, c in kernels[:top]]}
 
 
 def main() -> int:
@@ -263,6 +294,9 @@ def main() -> int:
           "launches": launches,
           "audio_s_per_s_batch64_bucket512_bf16": audio_s / wall,
           "card": card})
+    if "--profile" in sys.argv[1:]:
+        emit(profile_batch(lambda: synth.synthesize_batch(
+            texts64, duration_scale=scale), card))
 
     # same texts through the plain packed-matmul vocoder, f32
     synth_mm = pipeline.Synthesizer(synth.model, compute_dtype="f32",

@@ -22,11 +22,16 @@
 // Values at positions outside [0, T_stage) are zero at every stage's own
 // rate, which is exactly the SAME padding of the unfused vocoder.
 //
-// Arithmetic: plain FMA loops, f32 accumulation. Matmul inputs are in the
-// compute dtype (f32 or bf16); biases, the residual add and tanh are f32;
+// Arithmetic: FMA loops, f32 accumulation. Matmul inputs are in the compute
+// dtype (f32 or bf16); biases, the residual add and tanh are f32;
 // activations are rounded to the compute dtype after the input conv, after
 // each leaky ReLU and after each residual add -- the rounding points of the
 // TPU kernel, and of vocoder_mm_forward, its plain PyTorch version.
+//
+// Shared-memory buffers are channel-major ([channel][row]), so a thread
+// reads the RT+2 consecutive rows its RT x CT output tile needs once per
+// input channel and uses them for all three taps of the k=3 conv; weights
+// come from global memory (L1/L2) as CT-wide vectors.
 //
 // The transposed conv is the sub-pixel matmul on the packed [3*C_in,
 // r*C_out] matrix; for phase j < r/2 its x_{q+1} tap block is zero and for
@@ -45,7 +50,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int RT = 4;                      // output rows per thread tile
+constexpr int kMaxRT = 8;                  // largest row tile of a pass
 constexpr size_t kSmemBudget = 112 * 1024; // two blocks per SM
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -59,7 +64,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : 0.1f * v; }
 
-// Load CT consecutive weights (aligned to CT elements when CT == 4).
+__device__ __forceinline__ void unpack2(uint32_t u, float* w) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  w[0] = f.x;
+  w[1] = f.y;
+}
+
+// Load CT consecutive weights, aligned to CT elements.
 template <int CT>
 __device__ __forceinline__ void load_w(const float* __restrict__ p, float (&w)[CT]) {
   if constexpr (CT == 4) {
@@ -75,9 +86,7 @@ template <int CT>
 __device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p, float (&w)[CT]) {
   if constexpr (CT == 4) {
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
+    unpack2(v.x, w); unpack2(v.y, w + 2);
   } else {
     const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
@@ -85,23 +94,60 @@ __device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p, floa
   }
 }
 
+// Store CT consecutive values to global memory, aligned to CT elements.
+template <int CT>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (CT == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) p[c] = v[c];
+  }
+}
+
+template <int CT>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (CT == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                              *reinterpret_cast<const uint32_t*>(&b));
+  } else {
+#pragma unroll
+    for (int c = 0; c < CT; ++c) p[c] = from_f<__nv_bfloat16>(v[c]);
+  }
+}
+
+template <int RT, int CT, int OFF>
+__device__ __forceinline__ void fma_tile(float (&acc)[RT][CT], const float (&xv)[RT + 2],
+                                         const float (&w)[CT]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(xv[i + OFF], w[c], acc[i][c]);
+}
+
 __host__ __device__ __forceinline__ int floordiv(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-// One k=3 matmul pass over shared-memory rows, tiled RT rows x CT columns
-// per thread. Output row o of phase j reads input rows o + row_off + d for
-// the taps d; weight rows (d+1)*cin + k, columns j*ncols + c. store(j, o, c,
-// acc) writes each finished value.
-template <typename T, int CT, typename Store>
-__device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols,
-                                          const T* in, int ld_in, int in_rows,
-                                          int row_off, const T* __restrict__ W,
-                                          int ldw, const float* __restrict__ bias,
-                                          int cin, bool tconv, int r, Store store) {
+__host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// One k=3 matmul pass over a channel-major shared-memory buffer, tiled RT
+// rows x CT columns per thread. Output row o of phase j reads input rows
+// o + d + 1 (d = -1, 0, 1), weight rows (d+1)*cin + k, columns
+// j*ncols + c. The input buffer must hold round_up(n_out, RT) + 2 rows:
+// rows past the tile's end are computed and dropped. store(j, o, c0, v)
+// writes the CT finished values of one row.
+template <typename T, int RT, int CT, typename Store>
+__device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols, const T* in,
+                                          int ld_in, const T* __restrict__ W, int ldw,
+                                          const float* __restrict__ bias, int cin,
+                                          bool tconv, int r, Store store) {
   const int nrb = (n_out + RT - 1) / RT;
   const int ncb = ncols / CT;
   const int ntask = n_phase * nrb * ncb;
+  const size_t tap = (size_t)cin * ldw;
   for (int t = threadIdx.x; t < ntask; t += blockDim.x) {
     const int cb = t % ncb;
     const int rest = t / ncb;
@@ -110,60 +156,65 @@ __device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols,
     const int c0 = cb * CT;
     const int o0 = rb * RT;
     float acc[RT][CT];
+    {
+      float bv[CT];
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const float bv = __ldg(bias + c0 + c);
+      for (int c = 0; c < CT; ++c) bv[c] = __ldg(bias + c0 + c);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) acc[i][c] = bv;
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int c = 0; c < CT; ++c) acc[i][c] = bv[c];
     }
-    int dlo = -1, dhi = 1;
-    if (tconv) {
-      if (j < r / 2) dhi = 0; else dlo = 0;
-    }
-    for (int d = dlo; d <= dhi; ++d) {
-      const T* xp[RT];
+    const bool lo = !tconv || j < r / 2;   // tap d = -1 is live
+    const bool hi = !tconv || j >= r / 2;  // tap d = +1 is live
+    const T* xk = in + o0;
+    const T* wk = W + (size_t)j * ncols + c0;
+#pragma unroll 2
+    for (int k = 0; k < cin; ++k, xk += ld_in, wk += ldw) {
+      float xv[RT + 2];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        // rows past the tile's end are computed and dropped; clamp keeps
-        // their reads inside the buffer
-        const int rr = min(max(o0 + i + row_off + d, 0), in_rows - 1);
-        xp[i] = in + (size_t)rr * ld_in;
+      for (int q = 0; q < RT + 2; ++q) xv[q] = to_f(xk[q]);
+      float w[CT];
+      if (lo) {
+        load_w<CT>(wk, w);
+        fma_tile<RT, CT, 0>(acc, xv, w);
       }
-      const T* wp = W + (size_t)((d + 1) * cin) * ldw + (size_t)j * ncols + c0;
-#pragma unroll 4
-      for (int k = 0; k < cin; ++k) {
-        float w[CT];
-        load_w<CT>(wp + (size_t)k * ldw, w);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float xv = to_f(xp[i][k]);
-#pragma unroll
-          for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(xv, w[c], acc[i][c]);
-        }
+      load_w<CT>(wk + tap, w);
+      fma_tile<RT, CT, 1>(acc, xv, w);
+      if (hi) {
+        load_w<CT>(wk + 2 * tap, w);
+        fma_tile<RT, CT, 2>(acc, xv, w);
       }
     }
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      if (o0 + i < n_out) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) store(j, o0 + i, c0 + c, acc[i][c]);
-      }
-    }
+    for (int i = 0; i < RT; ++i)
+      if (o0 + i < n_out) store(j, o0 + i, c0, acc[i]);
   }
+}
+
+template <int RT, typename T, typename Store>
+__device__ __forceinline__ void conv_ct(int n_out, int n_phase, int ncols, const T* in,
+                                        int ld_in, const T* __restrict__ W, int ldw,
+                                        const float* __restrict__ bias, int cin, bool tconv,
+                                        int r, Store store) {
+  // 4-column tiles: measured faster than 8 on the H100 (8 x 8 tiles spill
+  // at the two-blocks-per-SM register budget)
+  if (ncols % 4 == 0)
+    conv_pass<T, RT, 4>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
+  else
+    conv_pass<T, RT, 1>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
 }
 
 template <typename T, typename Store>
 __device__ __forceinline__ void conv_any(int n_out, int n_phase, int ncols, const T* in,
-                                         int ld_in, int in_rows, int row_off,
-                                         const T* __restrict__ W, int ldw,
-                                         const float* __restrict__ bias, int cin,
-                                         bool tconv, int r, Store store) {
-  if (ncols % 4 == 0)
-    conv_pass<T, 4>(n_out, n_phase, ncols, in, ld_in, in_rows, row_off, W, ldw, bias,
-                    cin, tconv, r, store);
+                                         int ld_in, const T* __restrict__ W, int ldw,
+                                         const float* __restrict__ bias, int cin, bool tconv,
+                                         int r, Store store) {
+  // short passes take 4-row tiles, so fewer computed rows are dropped
+  if (n_out >= 24)
+    conv_ct<8>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
   else
-    conv_pass<T, 1>(n_out, n_phase, ncols, in, ld_in, in_rows, row_off, W, ldw, bias,
-                    cin, tconv, r, store);
+    conv_ct<4>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
 }
 
 struct StageParams {
@@ -177,40 +228,48 @@ struct StageParams {
   int T_in, c_mel, c_in, c_out, r, q_tile, first, last;
 };
 
-// Row counts of one block's buffers; identical for every block of a launch.
+// Buffer geometry of one block; identical for every block of a launch.
+// Each buffer is [channels][ld] with ld >= its rows, chosen so that
+// neighbouring channels fall on different shared-memory banks.
 struct Geometry {
-  int e, nqy, nx, ny, nh, nxo, nm;
-  int ldx, ldy, ldm;
+  int e, nqy, nx, ny, nh;
+  int ldx, ldy, ldh, ldo, ldm;
   size_t off_y, off_h, off_xo, off_m, bytes;
 };
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
+__host__ __device__ inline int lead_dim(int rows, int elt) {
+  return elt == 4 ? (rows | 1) : ((rows + 1) / 4) * 4 + 2;  // odd 32-bit word stride
+}
+
 __host__ __device__ inline Geometry geometry(const StageParams& p, int elt) {
   Geometry g;
   const int N = p.q_tile * p.r;
-  const int pad = elt == 4 ? 1 : 2;  // odd word stride: rows on distinct banks
   g.e = 2 + p.last;
   g.nqy = p.q_tile + floordiv(g.e - 1, p.r) + (g.e + p.r - 1) / p.r + 1;
   g.nx = g.nqy + 2;
   g.ny = N + 2 * g.e;
   g.nh = N + 2 * g.e - 2;
-  g.nxo = p.last ? N + 2 : 0;
-  g.nm = p.first ? g.nx + 2 : 0;
-  g.ldx = p.c_in + pad;
-  g.ldy = p.c_out + pad;
-  g.ldm = p.c_mel + pad;
-  size_t off = align16((size_t)g.nx * g.ldx * elt);
-  g.off_y = off;  off += align16((size_t)g.ny * g.ldy * elt);
-  g.off_h = off;  off += align16((size_t)g.nh * g.ldy * elt);
-  g.off_xo = off; off += align16((size_t)g.nxo * g.ldy * elt);
-  g.off_m = off;  off += align16((size_t)g.nm * g.ldm * elt);
+  const int n_o = p.last ? N + 2 : N;
+  // rows each buffer must hold: its values, or the padded tile reads of the
+  // pass that consumes it
+  g.ldx = lead_dim(max(g.nx, round_up(g.nqy, kMaxRT) + 2), elt);
+  g.ldy = lead_dim(max(g.ny, round_up(g.nh, kMaxRT) + 2), elt);
+  g.ldh = lead_dim(max(g.nh, round_up(n_o, kMaxRT) + 2), elt);
+  g.ldo = p.last ? lead_dim(N + 2, elt) : 0;
+  g.ldm = p.first ? lead_dim(max(g.nx + 2, round_up(g.nx, kMaxRT) + 2), elt) : 0;
+  size_t off = align16((size_t)p.c_in * g.ldx * elt);
+  g.off_y = off;  off += align16((size_t)p.c_out * g.ldy * elt);
+  g.off_h = off;  off += align16((size_t)p.c_out * g.ldh * elt);
+  g.off_xo = off; off += align16((size_t)(p.last ? p.c_out : 0) * g.ldo * elt);
+  g.off_m = off;  off += align16((size_t)(p.first ? p.c_mel : 0) * g.ldm * elt);
   g.bytes = off;
   return g;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) vocoder_stage_kernel(StageParams p) {
+__global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry g = geometry(p, sizeof(T));
   T* sx = reinterpret_cast<T*>(smem);
@@ -245,40 +304,50 @@ __global__ void __launch_bounds__(kThreads) vocoder_stage_kernel(StageParams p) 
       const int row = idx / p.c_mel, c = idx - row * p.c_mel;
       const int pos = xlo - 1 + row;
       const float v = (pos >= 0 && pos < T_in) ? mel[(size_t)pos * p.c_mel + c] : 0.f;
-      sm[row * g.ldm + c] = from_f<T>(v);
+      sm[c * g.ldm + row] = from_f<T>(v);
     }
     __syncthreads();
-    conv_any<T>(nx, 1, cin, sm, g.ldm, nm, 1, static_cast<const T*>(p.w_in), cin,
-                p.b_in, p.c_mel, false, r,
-                [&](int, int o, int c, float v) {
+    conv_any<T>(nx, 1, cin, sm, g.ldm, static_cast<const T*>(p.w_in), cin, p.b_in,
+                p.c_mel, false, r, [&](int, int o, int c0, const auto& v) {
                   const int pos = xlo + o;
-                  sx[o * g.ldx + c] = from_f<T>((pos >= 0 && pos < T_in) ? v : 0.f);
+                  const bool in = pos >= 0 && pos < T_in;
+#pragma unroll
+                  for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
+                    sx[(c0 + c) * g.ldx + o] = from_f<T>(in ? v[c] : 0.f);
                 });
   } else {
     const T* x = static_cast<const T*>(p.x) + (size_t)b * T_in * cin;
     for (int idx = threadIdx.x; idx < nx * cin; idx += blockDim.x) {
       const int row = idx / cin, c = idx - row * cin;
       const int pos = xlo + row;
-      sx[row * g.ldx + c] = (pos >= 0 && pos < T_in) ? x[(size_t)pos * cin + c] : from_f<T>(0.f);
+      sx[c * g.ldx + row] =
+          (pos >= 0 && pos < T_in) ? x[(size_t)pos * cin + c] : from_f<T>(0.f);
     }
   }
   __syncthreads();
 
   // ---- y = leaky(tconv(x)), as r phases of input-rate rows
-  conv_any<T>(nqy, r, cout, sx, g.ldx, nx, 1, static_cast<const T*>(p.w_t), r * cout,
-              p.b_t, cin, true, r, [&](int j, int o, int c, float v) {
+  conv_any<T>(nqy, r, cout, sx, g.ldx, static_cast<const T*>(p.w_t), r * cout, p.b_t,
+              cin, true, r, [&](int j, int o, int c0, const auto& v) {
                 const int pos = (qy_lo + o) * r + j;
                 const int iy = pos - y0;
-                if (iy >= 0 && iy < ny)
-                  sy[iy * g.ldy + c] = from_f<T>((pos >= 0 && pos < T_out) ? leaky(v) : 0.f);
+                if (iy >= 0 && iy < ny) {
+                  const bool in = pos >= 0 && pos < T_out;
+#pragma unroll
+                  for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
+                    sy[(c0 + c) * g.ldy + iy] = from_f<T>(in ? leaky(v[c]) : 0.f);
+                }
               });
   __syncthreads();
 
   // ---- h = leaky(conv1(y))
-  conv_any<T>(nh, 1, cout, sy, g.ldy, ny, h0 - y0, static_cast<const T*>(p.w_r1), cout,
-              p.b_r1, cout, false, r, [&](int, int o, int c, float v) {
+  conv_any<T>(nh, 1, cout, sy, g.ldy, static_cast<const T*>(p.w_r1), cout, p.b_r1, cout,
+              false, r, [&](int, int o, int c0, const auto& v) {
                 const int pos = h0 + o;
-                sh[o * g.ldy + c] = from_f<T>((pos >= 0 && pos < T_out) ? leaky(v) : 0.f);
+                const bool in = pos >= 0 && pos < T_out;
+#pragma unroll
+                for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
+                  sh[(c0 + c) * g.ldh + o] = from_f<T>(in ? leaky(v[c]) : 0.f);
               });
   __syncthreads();
 
@@ -286,14 +355,20 @@ __global__ void __launch_bounds__(kThreads) vocoder_stage_kernel(StageParams p) 
   const int o_start = p.last ? p0 - 1 : p0;
   const int n_o = p.last ? N + 2 : N;
   T* out = static_cast<T*>(p.out);
-  conv_any<T>(n_o, 1, cout, sh, g.ldy, nh, o_start - h0, static_cast<const T*>(p.w_r2),
-              cout, p.b_r2, cout, false, r, [&](int, int o, int c, float v) {
+  conv_any<T>(n_o, 1, cout, sh, g.ldh, static_cast<const T*>(p.w_r2), cout, p.b_r2, cout,
+              false, r, [&](int, int o, int c0, const auto& v) {
+                constexpr int CT = sizeof(v) / sizeof(float);
                 const int pos = o_start + o;
-                const float xv = to_f(sy[(pos - y0) * g.ldy + c]) + v;
-                if (p.last)
-                  sxo[o * g.ldy + c] = from_f<T>((pos >= 0 && pos < T_out) ? xv : 0.f);
-                else
-                  out[((size_t)b * T_out + pos) * cout + c] = from_f<T>(xv);
+                float xv[CT];
+#pragma unroll
+                for (int c = 0; c < CT; ++c) xv[c] = to_f(sy[(c0 + c) * g.ldy + pos - y0]) + v[c];
+                if (p.last) {
+                  const bool in = pos >= 0 && pos < T_out;
+#pragma unroll
+                  for (int c = 0; c < CT; ++c) sxo[(c0 + c) * g.ldo + o] = from_f<T>(in ? xv[c] : 0.f);
+                } else {
+                  store_vec<CT>(out + ((size_t)b * T_out + pos) * cout + c0, xv);
+                }
               });
 
   if (p.last) {
@@ -304,10 +379,10 @@ __global__ void __launch_bounds__(kThreads) vocoder_stage_kernel(StageParams p) 
     const float bo = __ldg(p.b_o);
     for (int o = threadIdx.x; o < N; o += blockDim.x) {
       float acc = bo;
-      for (int d = -1; d <= 1; ++d) {
-        const T* xr = sxo + (size_t)(o + 1 + d) * g.ldy;
-        const T* wr = wo + (size_t)(d + 1) * cout;
-        for (int k = 0; k < cout; ++k) acc = fmaf(to_f(xr[k]), to_f(wr[k]), acc);
+      for (int k = 0; k < cout; ++k) {
+        const T* xr = sxo + (size_t)k * g.ldo + o;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc = fmaf(to_f(xr[d]), to_f(wo[d * cout + k]), acc);
       }
       audio[p0 + o] = tanhf(acc);
     }

@@ -304,7 +304,3 @@ def init_params(model: M2TTS, generator: torch.Generator,
             mod.bn_scale.fill_(1.0)
             mod.bn_bias.zero_()
     return model.to(dev).eval()
-
-
-def count_parameters(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())

@@ -19,7 +19,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -32,8 +31,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _AVAILABLE: Optional[bool] = None
-#: wall seconds of the last ``build_all`` that compiled anything
-LAST_BUILD_SECONDS: float = 0.0
 
 
 def _nvcc() -> str:
@@ -54,11 +51,9 @@ def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, all in parallel (one
     ``nvcc`` per source); returns {name: library path}. Raises with the
     compiler's output when a build fails."""
-    global LAST_BUILD_SECONDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src.stem: (src, _target(src)) for src in sorted(CSRC.glob("*.cu"))}
     pending = {}
-    t0 = time.perf_counter()
     for name, (src, lib) in targets.items():
         if lib.exists():
             continue
@@ -76,8 +71,6 @@ def build_all() -> Dict[str, Path]:
         else:
             failed.append(f"{name} (rc {rc}):\n"
                           + lib.with_suffix(".log").read_text()[-4000:])
-    if pending:
-        LAST_BUILD_SECONDS = time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {name: lib for name, (_, lib) in targets.items()}

@@ -9,11 +9,12 @@ Replaces the TPU kernels ``m2tts_tpu/ops/pallas/vocoder_packed.py``
 What bounds it on the H100: operations. At the flagship widths the vocoder
 does ~11.9 MFLOP per mel frame (zero tconv taps skipped) and moves ~74 KB
 of f32 intermediates per frame between stages, far above the card's
-bytes-to-FLOP balance. This first design runs plain f32 FMA loops (no
-tensor cores): one launch per upsample stage with the stage's y and h in
-shared memory, the input conv fused into the first stage and the output
-conv + tanh into the last, weights read through L2. Tensor cores
-(wgmma/TMA) and a fully fused schedule are the next step.
+bytes-to-FLOP balance, so without tensor cores by the f32 FMA rate. The
+design runs f32 FMA loops in both compute dtypes: one launch per upsample
+stage with the stage's y and h in shared memory, the input conv fused into
+the first stage and the output conv + tanh into the last, weights read
+through L2. Tensor cores (wgmma/TMA) and a fully fused schedule are the
+next step.
 
 Unlike the TPU kernels there is no alignment rule: any B ≥ 1 and T ≥ 1 go
 through the kernel, which masks the ragged edge itself, so there is no

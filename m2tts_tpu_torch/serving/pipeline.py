@@ -362,10 +362,6 @@ class Synthesizer:
         self.model.load_state_dict(state_dict)
         self._drop_caches()
 
-    def synthesize_long(self, text: str, duration_scale: float = 1.0,
-                        gap_ms: float = 120.0) -> Dict[str, np.ndarray]:
-        return self.synthesize_batch_long([text], duration_scale, gap_ms)[0]
-
     def synthesize_batch_long(self, texts: List[str],
                               duration_scale: float = 1.0,
                               gap_ms: float = 120.0

@@ -3,6 +3,8 @@ the bridge), same numpy inputs, every output key of ``__call__``,
 ``acoustic`` and ``synthesize``. Floats at atol 3e-5 / rtol 1e-4 (f32);
 integer outputs and masks exactly."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +30,10 @@ def pair(request):
               text_encoder_layers=2, decoder_layers=2, upsample_rates=rates,
               duration_norm=norm)
     jm = JaxM2TTS(**kw)
-    params = jax.device_get(jm.init(
+    params = jax.device_get(jax.jit(partial(jm.init, max_frames=16,
+                                            run_vocoder=True))(
         jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-        jnp.array([8], jnp.int32), max_frames=16, run_vocoder=True))
+        jnp.array([8], jnp.int32)))
     if norm == "batch":  # non-identity folded BatchNorm stats
         rng = np.random.default_rng(3)
         for blk in ("block1", "block2"):

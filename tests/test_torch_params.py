@@ -28,11 +28,16 @@ def _model_cfg(name, norm=None):
 
 
 def _flax_params(model_cfg):
+    """The flax model's param tree (structure, shapes and dtypes from its
+    ``init``, traced abstractly), filled with seeded normal values so that
+    every element differs and a wrong layout shows."""
     model = jax_build_model(model_cfg)
-    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
-                        jnp.array([8], jnp.int32), max_frames=16,
-                        run_vocoder=True)
-    return jax.device_get(params)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+        jnp.array([8], jnp.int32), max_frames=16, run_vocoder=True))
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_map(
+        lambda s: rng.normal(size=s.shape).astype(s.dtype), shapes)
 
 
 @pytest.mark.parametrize("name,norm", [("stage1_poc.yaml", None),

@@ -3,6 +3,8 @@ the same weights, texts, buckets and duration scale give the same frame
 bucket and frame counts and int16 PCM within ±1 LSB; the μ-law codec, the
 text frontend and the long-form split agree exactly."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +34,9 @@ SCALE = 12.0  # random-init durations are ~0.3 frames; scale them up
 
 def _flax_params(seed):
     model = JaxM2TTS(**KW)
-    params = jax.device_get(model.init(
-        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32),
-        max_frames=16, run_vocoder=True))
+    params = jax.device_get(jax.jit(partial(
+        model.init, max_frames=16, run_vocoder=True))(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32)))
     return model, params
 
 
