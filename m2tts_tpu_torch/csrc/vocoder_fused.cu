@@ -1,32 +1,31 @@
-// Fused HiFi-GAN-lite vocoder for Hopper (sm_90a): one launch per upsample
-// stage, with the input conv fused into the first stage and the output conv
-// + tanh into the last.
+// Fused HiFi-GAN-lite vocoder for Hopper (sm_90a) in f32: one launch per
+// upsample stage, with the input conv fused into the first stage and the
+// output conv + tanh into the last.
 //
-// Replaces the TPU kernels m2tts_tpu/ops/pallas/vocoder_packed.py
-// (fused_vocoder_packed_forward) and m2tts_tpu/ops/pallas/vocoder.py
-// (fused_vocoder_forward). Both compute one function and differ only in how
-// they lay it onto the TPU's 128 lanes; Hopper has no lane axis to fill, so
-// this one kernel serves both contracts.
+// Replaces, for compute_dtype='f32', the TPU kernels
+// m2tts_tpu/ops/pallas/vocoder_packed.py (fused_vocoder_packed_forward) and
+// m2tts_tpu/ops/pallas/vocoder.py (fused_vocoder_forward). Both compute one
+// function and differ only in how they lay it onto the TPU's 128 lanes;
+// Hopper has no lane axis to fill, so this one kernel serves both
+// contracts. The bf16 path runs on tensor cores (vocoder_tc.cu); f32 stays
+// here because neither bf16 nor TF32 tensor cores meet the f32 tolerance.
 //
 // Per stage (input rate T_in, rate r, C_in -> C_out channels), each block
 // owns q_tile input frames of one utterance, i.e. N = q_tile*r output
 // frames, and keeps in shared memory:
-//   x   input frames with a halo (2 a side; 3 for the last stage), in the
-//       compute dtype; for the first stage computed from the mel window by
+//   x   input frames with a halo (2 a side; 3 for the last stage); for
+//       the first stage computed from the mel window by
 //       the input conv,
 //   y   = leaky(tconv(x)) on the N output frames plus e = 2 (last: 3) a side,
 //   h   = leaky(conv1(y)) on N plus e-1 a side,
 //   xo  = y + conv2(h) on N plus 1 a side (last stage only; it feeds the
 //       output conv).
-// Other stages write y + conv2(h) to device memory in the compute dtype.
+// Other stages write y + conv2(h) to device memory.
 // Values at positions outside [0, T_stage) are zero at every stage's own
 // rate, which is exactly the SAME padding of the unfused vocoder.
 //
-// Arithmetic: FMA loops, f32 accumulation. Matmul inputs are in the compute
-// dtype (f32 or bf16); biases, the residual add and tanh are f32;
-// activations are rounded to the compute dtype after the input conv, after
-// each leaky ReLU and after each residual add -- the rounding points of the
-// TPU kernel, and of vocoder_mm_forward, its plain PyTorch version.
+// Arithmetic: f32 FMA loops throughout, as vocoder_mm_forward (its plain
+// PyTorch version) computes under compute_dtype='f32'.
 //
 // Shared-memory buffers are channel-major ([channel][row]), so a thread
 // reads the RT+2 consecutive rows its RT x CT output tile needs once per
@@ -43,7 +42,6 @@
 // bound by operations; without tensor cores, by the f32 FMA rate. Weights
 // (4.8 MB in f32) are read from global memory and live in L2.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,22 +51,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxRT = 8;                  // largest row tile of a pass
 constexpr size_t kSmemBudget = 112 * 1024; // two blocks per SM
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : 0.1f * v; }
-
-__device__ __forceinline__ void unpack2(uint32_t u, float* w) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-  w[0] = f.x;
-  w[1] = f.y;
-}
 
 // Load CT consecutive weights, aligned to CT elements.
 template <int CT>
@@ -82,18 +65,6 @@ __device__ __forceinline__ void load_w(const float* __restrict__ p, float (&w)[C
   }
 }
 
-template <int CT>
-__device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p, float (&w)[CT]) {
-  if constexpr (CT == 4) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    unpack2(v.x, w); unpack2(v.y, w + 2);
-  } else {
-    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-    for (int c = 0; c < CT; ++c) w[c] = __bfloat162float(__ushort_as_bfloat16(__ldg(q + c)));
-  }
-}
-
 // Store CT consecutive values to global memory, aligned to CT elements.
 template <int CT>
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
@@ -102,19 +73,6 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
   } else {
 #pragma unroll
     for (int c = 0; c < CT; ++c) p[c] = v[c];
-  }
-}
-
-template <int CT>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
-  if constexpr (CT == 4) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
-                                              *reinterpret_cast<const uint32_t*>(&b));
-  } else {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) p[c] = from_f<__nv_bfloat16>(v[c]);
   }
 }
 
@@ -139,9 +97,9 @@ __host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b -
 // j*ncols + c. The input buffer must hold round_up(n_out, RT) + 2 rows:
 // rows past the tile's end are computed and dropped. store(j, o, c0, v)
 // writes the CT finished values of one row.
-template <typename T, int RT, int CT, typename Store>
-__device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols, const T* in,
-                                          int ld_in, const T* __restrict__ W, int ldw,
+template <int RT, int CT, typename Store>
+__device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols, const float* in,
+                                          int ld_in, const float* __restrict__ W, int ldw,
                                           const float* __restrict__ bias, int cin,
                                           bool tconv, int r, Store store) {
   const int nrb = (n_out + RT - 1) / RT;
@@ -167,13 +125,13 @@ __device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols, con
     }
     const bool lo = !tconv || j < r / 2;   // tap d = -1 is live
     const bool hi = !tconv || j >= r / 2;  // tap d = +1 is live
-    const T* xk = in + o0;
-    const T* wk = W + (size_t)j * ncols + c0;
+    const float* xk = in + o0;
+    const float* wk = W + (size_t)j * ncols + c0;
 #pragma unroll 2
     for (int k = 0; k < cin; ++k, xk += ld_in, wk += ldw) {
       float xv[RT + 2];
 #pragma unroll
-      for (int q = 0; q < RT + 2; ++q) xv[q] = to_f(xk[q]);
+      for (int q = 0; q < RT + 2; ++q) xv[q] = xk[q];
       float w[CT];
       if (lo) {
         load_w<CT>(wk, w);
@@ -192,22 +150,22 @@ __device__ __forceinline__ void conv_pass(int n_out, int n_phase, int ncols, con
   }
 }
 
-template <int RT, typename T, typename Store>
-__device__ __forceinline__ void conv_ct(int n_out, int n_phase, int ncols, const T* in,
-                                        int ld_in, const T* __restrict__ W, int ldw,
+template <int RT, typename Store>
+__device__ __forceinline__ void conv_ct(int n_out, int n_phase, int ncols, const float* in,
+                                        int ld_in, const float* __restrict__ W, int ldw,
                                         const float* __restrict__ bias, int cin, bool tconv,
                                         int r, Store store) {
   // 4-column tiles: measured faster than 8 on the H100 (8 x 8 tiles spill
   // at the two-blocks-per-SM register budget)
   if (ncols % 4 == 0)
-    conv_pass<T, RT, 4>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
+    conv_pass<RT, 4>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
   else
-    conv_pass<T, RT, 1>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
+    conv_pass<RT, 1>(n_out, n_phase, ncols, in, ld_in, W, ldw, bias, cin, tconv, r, store);
 }
 
-template <typename T, typename Store>
-__device__ __forceinline__ void conv_any(int n_out, int n_phase, int ncols, const T* in,
-                                         int ld_in, const T* __restrict__ W, int ldw,
+template <typename Store>
+__device__ __forceinline__ void conv_any(int n_out, int n_phase, int ncols, const float* in,
+                                         int ld_in, const float* __restrict__ W, int ldw,
                                          const float* __restrict__ bias, int cin, bool tconv,
                                          int r, Store store) {
   // short passes take 4-row tiles, so fewer computed rows are dropped
@@ -239,11 +197,9 @@ struct Geometry {
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~size_t(15); }
 
-__host__ __device__ inline int lead_dim(int rows, int elt) {
-  return elt == 4 ? (rows | 1) : ((rows + 1) / 4) * 4 + 2;  // odd 32-bit word stride
-}
+__host__ __device__ inline int lead_dim(int rows) { return rows | 1; }  // odd word stride
 
-__host__ __device__ inline Geometry geometry(const StageParams& p, int elt) {
+__host__ __device__ inline Geometry geometry(const StageParams& p) {
   Geometry g;
   const int N = p.q_tile * p.r;
   g.e = 2 + p.last;
@@ -254,29 +210,28 @@ __host__ __device__ inline Geometry geometry(const StageParams& p, int elt) {
   const int n_o = p.last ? N + 2 : N;
   // rows each buffer must hold: its values, or the padded tile reads of the
   // pass that consumes it
-  g.ldx = lead_dim(max(g.nx, round_up(g.nqy, kMaxRT) + 2), elt);
-  g.ldy = lead_dim(max(g.ny, round_up(g.nh, kMaxRT) + 2), elt);
-  g.ldh = lead_dim(max(g.nh, round_up(n_o, kMaxRT) + 2), elt);
-  g.ldo = p.last ? lead_dim(N + 2, elt) : 0;
-  g.ldm = p.first ? lead_dim(max(g.nx + 2, round_up(g.nx, kMaxRT) + 2), elt) : 0;
-  size_t off = align16((size_t)p.c_in * g.ldx * elt);
-  g.off_y = off;  off += align16((size_t)p.c_out * g.ldy * elt);
-  g.off_h = off;  off += align16((size_t)p.c_out * g.ldh * elt);
-  g.off_xo = off; off += align16((size_t)(p.last ? p.c_out : 0) * g.ldo * elt);
-  g.off_m = off;  off += align16((size_t)(p.first ? p.c_mel : 0) * g.ldm * elt);
+  g.ldx = lead_dim(max(g.nx, round_up(g.nqy, kMaxRT) + 2));
+  g.ldy = lead_dim(max(g.ny, round_up(g.nh, kMaxRT) + 2));
+  g.ldh = lead_dim(max(g.nh, round_up(n_o, kMaxRT) + 2));
+  g.ldo = p.last ? lead_dim(N + 2) : 0;
+  g.ldm = p.first ? lead_dim(max(g.nx + 2, round_up(g.nx, kMaxRT) + 2)) : 0;
+  size_t off = align16((size_t)p.c_in * g.ldx * 4);
+  g.off_y = off;  off += align16((size_t)p.c_out * g.ldy * 4);
+  g.off_h = off;  off += align16((size_t)p.c_out * g.ldh * 4);
+  g.off_xo = off; off += align16((size_t)(p.last ? p.c_out : 0) * g.ldo * 4);
+  g.off_m = off;  off += align16((size_t)(p.first ? p.c_mel : 0) * g.ldm * 4);
   g.bytes = off;
   return g;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geometry g = geometry(p, sizeof(T));
-  T* sx = reinterpret_cast<T*>(smem);
-  T* sy = reinterpret_cast<T*>(smem + g.off_y);
-  T* sh = reinterpret_cast<T*>(smem + g.off_h);
-  T* sxo = reinterpret_cast<T*>(smem + g.off_xo);
-  T* sm = reinterpret_cast<T*>(smem + g.off_m);
+  const Geometry g = geometry(p);
+  float* sx = reinterpret_cast<float*>(smem);
+  float* sy = reinterpret_cast<float*>(smem + g.off_y);
+  float* sh = reinterpret_cast<float*>(smem + g.off_h);
+  float* sxo = reinterpret_cast<float*>(smem + g.off_xo);
+  float* sm = reinterpret_cast<float*>(smem + g.off_m);
 
   const int b = blockIdx.y;
   const int r = p.r, cin = p.c_in, cout = p.c_out;
@@ -304,30 +259,30 @@ __global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams 
       const int row = idx / p.c_mel, c = idx - row * p.c_mel;
       const int pos = xlo - 1 + row;
       const float v = (pos >= 0 && pos < T_in) ? mel[(size_t)pos * p.c_mel + c] : 0.f;
-      sm[c * g.ldm + row] = from_f<T>(v);
+      sm[c * g.ldm + row] = v;
     }
     __syncthreads();
-    conv_any<T>(nx, 1, cin, sm, g.ldm, static_cast<const T*>(p.w_in), cin, p.b_in,
+    conv_any(nx, 1, cin, sm, g.ldm, static_cast<const float*>(p.w_in), cin, p.b_in,
                 p.c_mel, false, r, [&](int, int o, int c0, const auto& v) {
                   const int pos = xlo + o;
                   const bool in = pos >= 0 && pos < T_in;
 #pragma unroll
                   for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
-                    sx[(c0 + c) * g.ldx + o] = from_f<T>(in ? v[c] : 0.f);
+                    sx[(c0 + c) * g.ldx + o] = in ? v[c] : 0.f;
                 });
   } else {
-    const T* x = static_cast<const T*>(p.x) + (size_t)b * T_in * cin;
+    const float* x = static_cast<const float*>(p.x) + (size_t)b * T_in * cin;
     for (int idx = threadIdx.x; idx < nx * cin; idx += blockDim.x) {
       const int row = idx / cin, c = idx - row * cin;
       const int pos = xlo + row;
       sx[c * g.ldx + row] =
-          (pos >= 0 && pos < T_in) ? x[(size_t)pos * cin + c] : from_f<T>(0.f);
+          (pos >= 0 && pos < T_in) ? x[(size_t)pos * cin + c] : 0.f;
     }
   }
   __syncthreads();
 
   // ---- y = leaky(tconv(x)), as r phases of input-rate rows
-  conv_any<T>(nqy, r, cout, sx, g.ldx, static_cast<const T*>(p.w_t), r * cout, p.b_t,
+  conv_any(nqy, r, cout, sx, g.ldx, static_cast<const float*>(p.w_t), r * cout, p.b_t,
               cin, true, r, [&](int j, int o, int c0, const auto& v) {
                 const int pos = (qy_lo + o) * r + j;
                 const int iy = pos - y0;
@@ -335,37 +290,37 @@ __global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams 
                   const bool in = pos >= 0 && pos < T_out;
 #pragma unroll
                   for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
-                    sy[(c0 + c) * g.ldy + iy] = from_f<T>(in ? leaky(v[c]) : 0.f);
+                    sy[(c0 + c) * g.ldy + iy] = in ? leaky(v[c]) : 0.f;
                 }
               });
   __syncthreads();
 
   // ---- h = leaky(conv1(y))
-  conv_any<T>(nh, 1, cout, sy, g.ldy, static_cast<const T*>(p.w_r1), cout, p.b_r1, cout,
+  conv_any(nh, 1, cout, sy, g.ldy, static_cast<const float*>(p.w_r1), cout, p.b_r1, cout,
               false, r, [&](int, int o, int c0, const auto& v) {
                 const int pos = h0 + o;
                 const bool in = pos >= 0 && pos < T_out;
 #pragma unroll
                 for (int c = 0; c < (int)(sizeof(v) / sizeof(float)); ++c)
-                  sh[(c0 + c) * g.ldh + o] = from_f<T>(in ? leaky(v[c]) : 0.f);
+                  sh[(c0 + c) * g.ldh + o] = in ? leaky(v[c]) : 0.f;
               });
   __syncthreads();
 
   // ---- x' = y + conv2(h), residual add in f32
   const int o_start = p.last ? p0 - 1 : p0;
   const int n_o = p.last ? N + 2 : N;
-  T* out = static_cast<T*>(p.out);
-  conv_any<T>(n_o, 1, cout, sh, g.ldh, static_cast<const T*>(p.w_r2), cout, p.b_r2, cout,
+  float* out = static_cast<float*>(p.out);
+  conv_any(n_o, 1, cout, sh, g.ldh, static_cast<const float*>(p.w_r2), cout, p.b_r2, cout,
               false, r, [&](int, int o, int c0, const auto& v) {
                 constexpr int CT = sizeof(v) / sizeof(float);
                 const int pos = o_start + o;
                 float xv[CT];
 #pragma unroll
-                for (int c = 0; c < CT; ++c) xv[c] = to_f(sy[(c0 + c) * g.ldy + pos - y0]) + v[c];
+                for (int c = 0; c < CT; ++c) xv[c] = sy[(c0 + c) * g.ldy + pos - y0] + v[c];
                 if (p.last) {
                   const bool in = pos >= 0 && pos < T_out;
 #pragma unroll
-                  for (int c = 0; c < CT; ++c) sxo[(c0 + c) * g.ldo + o] = from_f<T>(in ? xv[c] : 0.f);
+                  for (int c = 0; c < CT; ++c) sxo[(c0 + c) * g.ldo + o] = in ? xv[c] : 0.f;
                 } else {
                   store_vec<CT>(out + ((size_t)b * T_out + pos) * cout + c0, xv);
                 }
@@ -374,15 +329,15 @@ __global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams 
   if (p.last) {
     __syncthreads();
     // ---- audio = tanh(output_conv(x')), one sample per thread
-    const T* wo = static_cast<const T*>(p.w_o);
+    const float* wo = static_cast<const float*>(p.w_o);
     float* audio = static_cast<float*>(p.out) + (size_t)b * T_out;
     const float bo = __ldg(p.b_o);
     for (int o = threadIdx.x; o < N; o += blockDim.x) {
       float acc = bo;
       for (int k = 0; k < cout; ++k) {
-        const T* xr = sxo + (size_t)k * g.ldo + o;
+        const float* xr = sxo + (size_t)k * g.ldo + o;
 #pragma unroll
-        for (int d = 0; d < 3; ++d) acc = fmaf(to_f(xr[d]), to_f(wo[d * cout + k]), acc);
+        for (int d = 0; d < 3; ++d) acc = fmaf(xr[d], wo[d * cout + k], acc);
       }
       audio[p0 + o] = tanhf(acc);
     }
@@ -391,27 +346,26 @@ __global__ void __launch_bounds__(kThreads, 2) vocoder_stage_kernel(StageParams 
 
 // Largest power-of-two tile with at most 256 output frames whose buffers
 // fit the shared-memory budget (at least 1).
-int pick_q_tile(StageParams p, int elt) {
+int pick_q_tile(StageParams p) {
   int q = 1;
   while (q * 2 * p.r <= 256) {
     p.q_tile = q * 2;
-    if (geometry(p, elt).bytes > kSmemBudget) break;
+    if (geometry(p).bytes > kSmemBudget) break;
     q *= 2;
   }
   return q;
 }
 
-template <typename T>
 int launch_stage(StageParams p, int B, cudaStream_t stream) {
-  p.q_tile = pick_q_tile(p, sizeof(T));
-  const Geometry g = geometry(p, sizeof(T));
+  p.q_tile = pick_q_tile(p);
+  const Geometry g = geometry(p);
   if (g.bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(vocoder_stage_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(vocoder_stage_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)g.bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.T_in + p.q_tile - 1) / p.q_tile, B);
-  vocoder_stage_kernel<T><<<grid, kThreads, g.bytes, stream>>>(p);
+  vocoder_stage_kernel<<<grid, kThreads, g.bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -419,35 +373,32 @@ int launch_stage(StageParams p, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// One vocoder stage. Pointers are device pointers; weight matrices are f32
-// (bf16 == 0) or bf16 (bf16 == 1), biases always f32. Returns a cudaError_t.
+// One vocoder stage in f32. Pointers are device pointers. Returns a
+// cudaError_t.
 int m2tts_vocoder_stage(const void* x, void* out, const void* w_in, const float* b_in,
                         const void* w_t, const float* b_t, const void* w_r1,
                         const float* b_r1, const void* w_r2, const float* b_r2,
                         const void* w_o, const float* b_o, int B, int T_in, int c_mel,
-                        int c_in, int c_out, int r, int first, int last, int bf16,
-                        void* stream) {
+                        int c_in, int c_out, int r, int first, int last, void* stream) {
   if (B < 1 || T_in < 1 || c_in < 1 || c_out < 1 || r < 2 || r % 2 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (first && c_mel < 1) return (int)cudaErrorInvalidValue;
   if ((long long)T_in * r > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   StageParams p{x, out, w_in, b_in, w_t, b_t, w_r1, b_r1, w_r2, b_r2, w_o, b_o,
                 T_in, c_mel, c_in, c_out, r, 1, first, last};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_stage<__nv_bfloat16>(p, B, s) : launch_stage<float>(p, B, s);
+  return launch_stage(p, B, static_cast<cudaStream_t>(stream));
 }
 
 // Tile (input frames per block) and shared-memory bytes the stage launch
 // uses, for the wrapper's docs and the smoke script's report.
 int m2tts_vocoder_stage_plan(int T_in, int c_mel, int c_in, int c_out, int r, int first,
-                             int last, int bf16, int* q_tile, long long* smem_bytes) {
+                             int last, int* q_tile, long long* smem_bytes) {
   StageParams p{};
   p.T_in = T_in; p.c_mel = c_mel; p.c_in = c_in; p.c_out = c_out; p.r = r;
   p.first = first; p.last = last;
-  const int elt = bf16 ? 2 : 4;
-  p.q_tile = pick_q_tile(p, elt);
+  p.q_tile = pick_q_tile(p);
   *q_tile = p.q_tile;
-  *smem_bytes = (long long)geometry(p, elt).bytes;
+  *smem_bytes = (long long)geometry(p).bytes;
   return 0;
 }
 

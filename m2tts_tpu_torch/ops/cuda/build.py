@@ -92,11 +92,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.m2tts_probe_add_one.argtypes = [p, p, i, p]
         lib.m2tts_probe_add_one.restype = i
     elif name == "vocoder_fused":
-        lib.m2tts_vocoder_stage.argtypes = [p] * 12 + [i] * 9 + [p]
+        lib.m2tts_vocoder_stage.argtypes = [p] * 12 + [i] * 8 + [p]
         lib.m2tts_vocoder_stage.restype = i
-        lib.m2tts_vocoder_stage_plan.argtypes = [i] * 8 + [
+        lib.m2tts_vocoder_stage_plan.argtypes = [i] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
         lib.m2tts_vocoder_stage_plan.restype = i
+    elif name == "vocoder_tc":
+        lib.m2tts_vocoder_tc_stage.argtypes = [p] * 10 + [i] * 16 + [p]
+        lib.m2tts_vocoder_tc_stage.restype = i
+        lib.m2tts_vocoder_tc_smem.argtypes = [i] * 9
+        lib.m2tts_vocoder_tc_smem.restype = ctypes.c_longlong
 
 
 def check(err: int, what: str) -> None:

@@ -10,8 +10,9 @@ exact dense-matmul forms with time on the M axis:
   where m falls outside [0, 2r): for phase j < r/2 the x_{q+1} block is
   zero, for j ≥ r/2 the x_{q-1} block).
 
-``vocoder_mm_forward`` is the plain version of the fused CUDA kernel
-(``ops/cuda/vocoder.py``): the same packed weights, the same function and,
+``vocoder_mm_forward`` is the plain version of the fused CUDA kernels
+(``ops/cuda/vocoder.py``), and ``vocoder_mm_stage`` of one of their stage
+launches: the same packed weights, the same function and,
 under ``compute_dtype='bf16'``, the same rounding points — matmul inputs
 rounded to bf16, products summed in f32, biases, the residual add and tanh
 in f32, activations rounded to bf16 after the input conv, after each leaky
@@ -20,7 +21,7 @@ ReLU and after each residual add.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -118,14 +119,34 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, 0.1 * x)
 
 
+def vocoder_mm_stage(x: torch.Tensor, stage: Dict, dt: torch.dtype,
+                     first: Optional[Dict] = None,
+                     last: Optional[Dict] = None) -> torch.Tensor:
+    """One upsample stage, the plain version of one stage launch of the
+    fused kernels. ``first`` is the packed input conv when this is the
+    first stage (``x`` is then the f32 mel [B, T, mel]), ``last`` the packed
+    output conv when it is the last (the result is then the f32 waveform
+    [B, T·r]); otherwise ``x`` and the result are activations [B, T, C] in
+    ``dt``."""
+    if first is not None:
+        x = conv3_mm(x.float(), **first, dt=dt).to(dt)
+    y = _leaky(tconv_mm(x, stage["tconv"], dt)).to(dt)
+    h = _leaky(conv3_mm(y, **stage["res1"], dt=dt)).to(dt)
+    x = (y.float() + conv3_mm(h, **stage["res2"], dt=dt)).to(dt)
+    if last is not None:
+        x = torch.tanh(conv3_mm(x, **last, dt=dt))[..., 0]
+    return x
+
+
 def vocoder_mm_forward(mel: torch.Tensor, packed: Dict,
                        compute_dtype: str = "f32") -> torch.Tensor:
     """[B, T, mel] → [B, T·prod(rates)] f32 waveform (tanh output)."""
     dt = DTYPES[compute_dtype]
-    x = conv3_mm(mel.float(), **packed["input_conv"], dt=dt).to(dt)
-    for stage in packed["stages"]:
-        y = _leaky(tconv_mm(x, stage["tconv"], dt)).to(dt)
-        h = _leaky(conv3_mm(y, **stage["res1"], dt=dt)).to(dt)
-        x = (y.float() + conv3_mm(h, **stage["res2"], dt=dt)).to(dt)
-    audio = torch.tanh(conv3_mm(x, **packed["output_conv"], dt=dt))
-    return audio[..., 0]
+    stages = packed["stages"]
+    x = mel
+    for i, stage in enumerate(stages):
+        x = vocoder_mm_stage(
+            x, stage, dt,
+            first=packed["input_conv"] if i == 0 else None,
+            last=packed["output_conv"] if i == len(stages) - 1 else None)
+    return x

@@ -1,14 +1,15 @@
 """Cases of the PyTorch port that need a CUDA device: the fused vocoder
-kernel against its plain version, the kernel probe, and the ``auto``
-Synthesizer through the kernel against the ``mm`` backend. They skip
-without a card. This file imports no JAX, so on the card it runs without
-the test harness's conftest (which sets JAX up):
+kernels (tensor-core in bf16, FMA in f32) against their plain versions,
+whole and stage by stage, the kernel probe, and the ``auto`` Synthesizer
+through the kernels against the ``mm`` backend. They skip without a
+card. This file imports no JAX, so on the card it runs without the test
+harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: f32 atol 3e-5 / rtol 1e-4; bf16 kernel against the bf16 plain
 version (same rounding points, other summation order) max abs 2e-2; PCM
-within ±1 LSB.
+within ±1 LSB in f32, within the bf16 bar scaled to LSB in bf16.
 """
 
 import numpy as np
@@ -39,11 +40,26 @@ def test_probe_and_kernels_available():
     assert build.PROBE_LAUNCHES == before + 1
 
 
+def _counts():
+    return {"bf16": cuda_vocoder.LAUNCHES_TC, "f32": cuda_vocoder.LAUNCHES_FMA}
+
+
+def _held(out, ref, cd):
+    if cd == "f32":
+        torch.testing.assert_close(out, ref, **F32)
+    else:
+        assert (out.float() - ref.float()).abs().max() < BF16_MAX
+
+
 @needs_cuda
 @pytest.mark.parametrize("rates,channels", [((4, 4, 2, 2), 64),
-                                            ((8, 8, 2, 2), 128)],
-                         ids=["64x-c64", "256x-c128"])
-@pytest.mark.parametrize("shape", [(1, 5), (3, 200)])
+                                            ((8, 8, 2, 2), 128),
+                                            ((8, 8, 2, 2), 192),
+                                            ((8, 8, 2, 2), 512)],
+                         ids=["64x-c64", "256x-c128", "256x-c192",
+                              "256x-c512"])
+@pytest.mark.parametrize("shape", [(1, 5), (3, 200), (1, 1), (2, 7),
+                                   (5, 333)])
 def test_kernel_matches_plain(rates, channels, shape):
     voc = init_params(Vocoder(16, channels, 3, rates),
                       torch.Generator().manual_seed(0), "cuda")
@@ -51,35 +67,63 @@ def test_kernel_matches_plain(rates, channels, shape):
     mel = torch.randn((*shape, 16), generator=gen).cuda()
     for cd in ("f32", "bf16"):
         packed = tmm.pack_vocoder_weights(voc, cd)
-        before = cuda_vocoder.LAUNCHES
+        before = _counts()
         out = cuda_vocoder.fused_vocoder_forward(mel, packed, rates, cd)
         torch.cuda.synchronize()
-        assert cuda_vocoder.LAUNCHES == before + 1
+        after = _counts()
+        other = "f32" if cd == "bf16" else "bf16"
+        assert after[cd] == before[cd] + len(rates)  # one launch a stage
+        assert after[other] == before[other]
         assert out.shape == (shape[0], shape[1] * int(np.prod(rates)))
-        ref = tmm.vocoder_mm_forward(mel, packed, cd)
-        if cd == "f32":
-            torch.testing.assert_close(out, ref, **F32)
-        else:
-            assert (out - ref).abs().max() < BF16_MAX
+        _held(out, tmm.vocoder_mm_forward(mel, packed, cd), cd)
 
 
 @needs_cuda
-def test_auto_synthesizer_runs_the_kernel():
+@pytest.mark.parametrize("shape", [(1, 1), (5, 333)])
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_each_stage_matches_plain(cd, shape):
+    rates = (8, 8, 2, 2)
+    voc = init_params(Vocoder(16, 128, 3, rates),
+                      torch.Generator().manual_seed(0), "cuda")
+    packed = tmm.pack_vocoder_weights(voc, cd)
+    x = torch.randn((*shape, 16), generator=torch.Generator().manual_seed(2)).cuda()
+    for i, st in enumerate(packed["stages"]):
+        out = cuda_vocoder.fused_vocoder_stage(x, packed, i, cd)
+        torch.cuda.synchronize()
+        ref = tmm.vocoder_mm_stage(
+            x, st, tmm.DTYPES[cd],
+            first=packed["input_conv"] if i == 0 else None,
+            last=packed["output_conv"] if i == len(rates) - 1 else None)
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        _held(out, ref, cd)
+        x = ref
+
+
+@needs_cuda
+def test_tc_layout_matches_the_library():
+    for st in cuda_vocoder.tc_plan((8, 8, 2, 2), 80, 256):
+        assert cuda_vocoder.tc_smem_bytes(st) == st["smem_bytes"]
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_auto_synthesizer_runs_the_kernel(cd):
     model = init_params(M2TTS(hidden_dim=32, mel_channels=16,
                               vocoder_channels=32, text_encoder_layers=1,
                               decoder_layers=1),
                         torch.Generator().manual_seed(0), "cuda")
     buckets = dict(text_buckets=(16, 32), frame_buckets=(64, 128),
                    batch_buckets=(1, 2, 4))
-    auto = Synthesizer(model, compute_dtype="f32", **buckets)
-    mm = Synthesizer(model, compute_dtype="f32", vocoder_backend="mm",
+    auto = Synthesizer(model, compute_dtype=cd, **buckets)
+    mm = Synthesizer(model, compute_dtype=cd, vocoder_backend="mm",
                      **buckets)
     assert auto.vocoder_backend == "cuda"
     texts = ["hello world", "the quick brown fox jumps", "a"]
-    before = cuda_vocoder.LAUNCHES
+    before = _counts()[cd]
     out = auto.synthesize_batch(texts, duration_scale=12.0)
-    assert cuda_vocoder.LAUNCHES == before + 1
+    assert _counts()[cd] > before
+    lsb = 1 if cd == "f32" else int(BF16_MAX * 32767) + 1
     for a, b in zip(out, mm.synthesize_batch(texts, duration_scale=12.0)):
         assert a["frames"] == b["frames"]
         assert np.abs(a["audio_pcm"].astype(np.int32)
-                      - b["audio_pcm"]).max(initial=0) <= 1
+                      - b["audio_pcm"]).max(initial=0) <= lsb

@@ -1,7 +1,8 @@
 """Vocoder of the PyTorch port: packed weights, the plain packed-matmul
 forward and the ``Vocoder`` module against the JAX packing and both Pallas
-kernels (interpret mode), and the CUDA wrapper's CPU behaviour. The cases
-that need a card are in ``test_torch_cuda.py``.
+kernels (interpret mode), the per-stage plain version, the tensor-core
+kernel's tiling and weight chunks, and the CUDA wrappers' CPU behaviour.
+The cases that need a card are in ``test_torch_cuda.py``.
 
 Tolerances: f32 atol 3e-5 / rtol 1e-4. bf16 (the port's plain version
 against the Pallas kernels, both with bf16 matmul inputs, f32 sums and the
@@ -112,16 +113,114 @@ def test_plain_bf16_equals_pallas_bf16(setup):
         assert err.max() < BF16_MAX and err.mean() < BF16_MEAN
 
 
-def test_wrapper_on_cpu_takes_plain_path(setup):
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 3), (2, 48)], ids=["1x3", "2x48"])
+def test_stages_chain_to_forward(setup, cd, shape):
+    """Chaining ``vocoder_mm_stage`` is ``vocoder_mm_forward``, exactly."""
+    rates, voc, _, _ = setup
+    packed = tmm.pack_vocoder_weights(voc, cd)
+    mel = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(*shape, 16)).astype(np.float32))
+    x, n = mel, len(rates)
+    for i, st in enumerate(packed["stages"]):
+        x = tmm.vocoder_mm_stage(
+            x, st, tmm.DTYPES[cd],
+            first=packed["input_conv"] if i == 0 else None,
+            last=packed["output_conv"] if i == n - 1 else None)
+        if i < n - 1:
+            assert x.dtype == tmm.DTYPES[cd]
+            assert x.shape == (shape[0], shape[1] * int(np.prod(rates[:i + 1])),
+                               st["tconv"]["cout"])
+    torch.testing.assert_close(x, tmm.vocoder_mm_forward(mel, packed, cd),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_wrapper_on_cpu_takes_plain_path(setup, cd):
     rates, voc, _, mel = setup
-    packed = tmm.pack_vocoder_weights(voc)
-    before = cuda_vocoder.LAUNCHES
+    packed = tmm.pack_vocoder_weights(voc, cd)
+    before = (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_FMA)
     out = cuda_vocoder.fused_vocoder_forward(torch.from_numpy(mel), packed,
-                                             rates)
-    assert cuda_vocoder.LAUNCHES == before
+                                             rates, cd)
     np.testing.assert_array_equal(
         out.numpy(),
-        tmm.vocoder_mm_forward(torch.from_numpy(mel), packed).numpy())
+        tmm.vocoder_mm_forward(torch.from_numpy(mel), packed, cd).numpy())
+    x = torch.from_numpy(mel)
+    for i in range(len(rates)):
+        x = cuda_vocoder.fused_vocoder_stage(x, packed, i, cd)
+    np.testing.assert_array_equal(x.numpy(), out.numpy())
+    assert (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_FMA) == before
+
+
+@pytest.mark.parametrize("rates,c_mel,channels",
+                         [((8, 8, 2, 2), 80, 256), ((4, 4, 2, 2), 16, 64),
+                          ((8, 8, 2, 2), 16, 128), ((2, 2), 5, 24),
+                          ((8, 8, 2, 2), 80, 512), ((8, 8, 2, 2), 16, 192)],
+                         ids=["flagship", "64x-c64", "256x-c128", "odd-c",
+                              "flagship-xl", "256x-c192"])
+def test_tc_plan_fits_the_card(rates, c_mel, channels):
+    """Every stage's tiling fits Hopper's shared memory and the
+    warpgroups' accumulators, and the stage floors cover every pass."""
+    for st in cuda_vocoder.tc_plan(rates, c_mel, channels):
+        assert st["cip"] % 16 == st["cop"] % 16 == st["cmp"] % 16 == 0
+        assert st["cip"] % st["nw"] == st["cop"] % st["nw"] == 0
+        assert st["smem_bytes"] <= cuda_vocoder.SMEM_MAX
+        assert st["slot_bytes"] % 128 == 0
+        geo = cuda_vocoder.tc_geometry(
+            st["cmp"], st["cip"], st["cop"], st["r"], st["first"],
+            st["last"], st["q_tile"], st["nw"], st["slot_bytes"])
+        assert geo["smem"] == st["smem_bytes"]
+        kcs = {"in": st["kc_in"], "t": st["kc_t"], "r": st["kc_r"]}
+        for ps in cuda_vocoder._passes(st):
+            kc = kcs[ps["name"]]
+            assert ps["cin"] % kc == 0 and kc % 16 == 0
+            assert cuda_vocoder._chunk_bytes(st, ps, kc) <= st["slot_bytes"]
+            wn = cuda_vocoder._wn(ps["ncols"], st["nw"])
+            tiles = cuda_vocoder._tile_rows(geo[ps["rows"]], wn) // 64
+            assert tiles <= 4 * (3 - wn)
+
+
+def test_tc_chunks_rebuild_the_weights(setup):
+    """The chunk stream the tensor-core kernel copies holds every packed
+    weight at the place the kernel reads it, and nothing else but zeros."""
+    rates, voc, _, _ = setup
+    packed = tmm.pack_vocoder_weights(voc, "bf16")
+    plan = cuda_vocoder.tc_plan(rates, 16, voc.input_conv.conv.weight.shape[0])
+    for i, st in enumerate(plan):
+        ops = cuda_vocoder._tc_pack_stage(packed, i, st, "cpu")
+        w, off = ops["w"].float(), ops["off"].tolist()
+        assert off[-1] == 2 * w.numel() and len(off) == ops["nchunks"] + 1
+        c, nw = 0, st["nw"]
+        kcs = {"in": st["kc_in"], "t": st["kc_t"], "r": st["kc_r"]}
+        stage = packed["stages"][i]
+        mats = [stage["tconv"]["w"], stage["res1"]["w"], stage["res2"]["w"]]
+        if st["first"]:
+            mats.insert(0, packed["input_conv"]["w"])
+        for ps, ref in zip(cuda_vocoder._passes(st), mats):
+            # rebuild [3, K, ncols] as the kernel addresses it
+            kc, ng = kcs[ps["name"]], cuda_vocoder._wn(ps["ncols"], nw) * nw
+            half = (st["r"] // 2) * st["cop"]
+            got = torch.zeros(3, ps["cin"], ps["ncols"])
+            for g0 in range(0, ps["ncols"], ng):
+                t0, t1 = cuda_vocoder._group_taps(g0, ng, ps["tconv"], half)
+                for k0 in range(0, ps["cin"], kc):
+                    blk = w[off[c] // 2:off[c + 1] // 2]
+                    got[t0:t1, k0:k0 + kc, g0:g0 + ng] = blk.reshape(
+                        t1 - t0, kc // 8, ng, 8).permute(0, 1, 3, 2).reshape(
+                        t1 - t0, kc, ng)
+                    c += 1
+            cin, cols = ref.shape[0] // 3, ref.shape[1]
+            ref3 = ref.float().reshape(3, cin, cols)
+            total = got.abs().sum()
+            if ps["tconv"]:
+                r, cout = st["r"], st["c_out"]
+                got = got.reshape(3, ps["cin"], r, st["cop"])[:, :cin, :, :cout]
+                ref3 = ref3.reshape(3, cin, r, cout)
+            else:
+                got = got[:, :cin, :cols]
+            torch.testing.assert_close(got, ref3, rtol=0, atol=0)
+            assert got.abs().sum() == total  # the padding is zero
+        assert c == ops["nchunks"]
 
 
 def test_wrapper_rejects_bad_input(setup):
