@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``m2tts_tpu_torch/csrc`` (and counts,
-in the tensor-core kernel's SASS, its wgmma instructions and the waits on
-them), holds each
+in both tensor-core kernels' SASS, their wgmma instructions and the waits
+on them), holds each
 against its plain PyTorch version at the flagship widths (the vocoder
-kernels whole and stage by stage: the tensor-core kernel in bf16, the FMA
-kernel in f32; the vocoder also at the XL config's 512 channels), times
-them beside the cuDNN ``Vocoder`` module, then drives
+kernels whole and stage by stage: ``vocoder_tc.cu`` in bf16, the 3×TF32
+``vocoder_tc32.cu`` in f32; the vocoder also at the XL config's 512
+channels), times them beside the cuDNN ``Vocoder`` module (and the probe by
+its device time beside ``torch.add``'s), then drives
 the flagship serving path (``serving.pipeline.from_config(FLAGSHIP_MODEL)``,
 seeded random weights, ``vocoder_backend='auto'``) on eight texts in bf16
 and f32, checks its audio against the plain packed-matmul vocoder, and
@@ -61,9 +62,13 @@ F32_TOL = {"atol": 3e-5, "rtol": 1e-4}
 # output; bounded at 1/10 of the bf16-against-f32 bars below
 BF16_TOL = {"max_abs": 1.5e-2, "mean_abs": 2e-3}
 BF16_VS_F32 = {"max_abs": 0.15, "mean_abs": 2e-2}
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
+# The f32 kernel runs each f32 product as three TF32 products (495 TFLOP/s),
+# so its operations peak is a third of that; the f32 FMA pipe's 67 TFLOP/s
+# is the bound of a kernel without tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12}
+FMA_FLOPS = 67e12
 
 
 def emit(obj) -> None:
@@ -152,14 +157,40 @@ def wgmma_sass(lib, nvcc: str) -> dict:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"tc_stage_kernelILi(\d+)E", line)
-            fn = f"tc_stage_kernel<{m.group(1)}>" if m else line.split()[-1]
+            m = re.search(r"(tc(?:32)?_stage_kernel)I((?:Li\d+E)+)E", line)
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            fn = f"{m.group(1)}<{args}>" if m else line.split()[-1]
             counts[fn] = {"hgmma": 0, "depbar": 0}
         elif fn is not None and "HGMMA" in line:
             counts[fn]["hgmma"] += 1
         elif fn is not None and "WARPGROUP.DEPBAR" in line:
             counts[fn]["depbar"] += 1
     return counts
+
+
+def device_ms(fn, iters: int) -> dict:
+    """Per call of ``fn`` over ``iters`` back-to-back calls: the device time
+    of its kernels (torch.profiler), the kernels a call launches, and the
+    host time a call takes to issue."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in ev)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"device_ms": total_us / iters / 1e3,
+            "kernels_per_call": sum(e.count for e in ev) / iters,
+            "host_issue_ms": host_s / iters * 1e3,
+            "kernel_names": sorted({e.key[:60] for e in ev})}
 
 
 def profile_batch(run, card: str, top: int = 12) -> dict:
@@ -219,18 +250,34 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     if not build.kernels_available():
         raise RuntimeError("kernels_available() is False on a CUDA device")
+    sass = {name: wgmma_sass(libs[name], build._nvcc())
+            for name in ("vocoder_tc", "vocoder_tc32")}
+    for name, counts in sass.items():
+        for fn, c in counts.items():
+            if c["hgmma"] < 1 or c["depbar"] >= c["hgmma"]:
+                raise RuntimeError(f"{name} {fn}: {c['hgmma']} HGMMA, "
+                                   f"{c['depbar']} WARPGROUP.DEPBAR")
     emit({"phase": "build", "seconds": build_s,
           "libraries": sorted(p.name for p in libs.values()),
-          "vocoder_tc_sass": wgmma_sass(libs["vocoder_tc"], build._nvcc())})
+          "vocoder_tc_sass": sass["vocoder_tc"],
+          "vocoder_tc32_sass": sass["vocoder_tc32"]})
 
     # ---- 3. kernels against their plain versions
     px = torch.zeros((8, 128), dtype=torch.float32, device="cuda")
     probe_err = (build.probe_add_one(px) - (px + 1.0)).abs().max().item()
     if probe_err != 0.0:
         raise RuntimeError(f"probe kernel differs from x + 1 by {probe_err}")
-    probe_ms = cuda_time_ms(lambda: build.probe_add_one(px), 200)
-    probe_plain_ms = cuda_time_ms(lambda: px + 1.0, 200)
-    probe_lib_ms = cuda_time_ms(lambda: torch.add(px, 1.0), 200)
+    # the same 200 back-to-back calls timed two ways: CUDA events (bound by
+    # the host's issue rate for an 8 KB kernel) and the kernels' own device
+    # time (torch.profiler)
+    probe_t = {}
+    for name, fn in (("probe", lambda: build.probe_add_one(px)),
+                     ("plain", lambda: px + 1.0),
+                     ("library", lambda: torch.add(px, 1.0))):
+        probe_t[name] = {"event_ms": cuda_time_ms(fn, 200),
+                         **device_ms(fn, 200)}
+    emit({"phase": "probe_times", "card": card, "shape": list(px.shape),
+          **probe_t})
 
     vcfg = FLAGSHIP_MODEL["vocoder"]
     c_mel, channels = vcfg["mel_channels"], vcfg["hidden_channels"]
@@ -245,11 +292,13 @@ def main() -> int:
     # stage 0 runs the residual convs as two column groups a block
     for config, width, shapes in (("flagship", channels, SHAPES + EDGE_SHAPES),
                                   ("flagship_xl", XL_CHANNELS, XL_SHAPES)):
-        for st in cuda_vocoder.tc_plan(rates, c_mel, width):
+        for st in (cuda_vocoder.tc_plan(rates, c_mel, width, "bf16")
+                   + cuda_vocoder.tc_plan(rates, c_mel, width, "f32")):
             if cuda_vocoder.tc_smem_bytes(st) != st["smem_bytes"]:
                 raise RuntimeError("the wrapper's and the kernel's shared-"
                                    f"memory layouts differ at {config} "
-                                   f"stage r={st['r']}")
+                                   f"{st['compute_dtype']} stage "
+                                   f"r={st['r']}")
         v = init_params(Vocoder(c_mel, width, 3, rates),
                         torch.Generator().manual_seed(SEED), "cuda")
         pk = {cd: pack_vocoder_weights(v, cd) for cd in ("f32", "bf16")}
@@ -310,7 +359,7 @@ def main() -> int:
             mel_m = mel if cd == "f32" else mel.to(torch.bfloat16)
             t = {
                 "kernel": "fused_vocoder_tc" if cd == "bf16"
-                else "fused_vocoder_fma",
+                else "fused_vocoder_tc32",
                 "kernel_ms": cuda_time_ms(lambda: cuda_vocoder.fused_vocoder_forward(
                     mel, packed[cd], rates, cd), 10),
                 "plain_ms": cuda_time_ms(
@@ -320,6 +369,9 @@ def main() -> int:
             flops, nbytes = vocoder_work(B, T, c_mel, channels, rates,
                                          4 if cd == "f32" else 2)
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes, cd)
+            if cd == "f32":
+                # what a kernel on the f32 FMA pipe could not beat
+                t["fma_bound_ms"] = flops / FMA_FLOPS * 1e3
             t.update(flops=flops, bytes=nbytes,
                      tflops=flops / t["kernel_ms"] / 1e9)
             stages, x = [], mel
@@ -335,15 +387,17 @@ def main() -> int:
                                "bytes": sb, "ops_floor_ms": ops_ms,
                                "bytes_floor_ms": bytes_ms,
                                "tflops": sf / ms / 1e9})
-                if cd == "bf16":
-                    # every block streams its stage's whole weight chunk
-                    # stream from L2 through its shared-memory ring
-                    st, ops = cuda_vocoder._tc_operands(
-                        packed[cd], c_mel, mel.device)[i]
-                    blocks = B * -(-xi.shape[1] // st["q_tile"])
-                    stages[-1].update(
-                        blocks=blocks,
-                        weight_l2_bytes=blocks * 2 * ops["w"].numel())
+                if cd == "f32":
+                    stages[-1]["fma_floor_ms"] = sf / FMA_FLOPS * 1e3
+                # every block streams its stage's whole weight chunk stream
+                # from L2 through its shared-memory ring
+                st, ops = cuda_vocoder._tc_operands(
+                    packed[cd], c_mel, mel.device, cd)[i]
+                blocks = B * -(-xi.shape[1] // st["q_tile"])
+                stages[-1].update(
+                    blocks=blocks, q_tile=st["q_tile"],
+                    weight_l2_bytes=blocks * ops["w"].numel()
+                    * ops["w"].element_size())
                 x = cuda_vocoder.fused_vocoder_stage(xi, packed[cd], i, cd)
             t["stages"] = stages
             # a per-stage design's floor: each stage at its larger floor
@@ -361,7 +415,7 @@ def main() -> int:
     # made; clear the cached answer so this run shows that launch too
     build._AVAILABLE = None
     cuda_vocoder.LAUNCHES_TC = 0
-    cuda_vocoder.LAUNCHES_FMA = 0
+    cuda_vocoder.LAUNCHES_TC32 = 0
     build.PROBE_LAUNCHES = 0
     buckets = {"text_buckets": (32, 64, 128),
                "frame_buckets": (128, 256, 384, 512),
@@ -409,7 +463,7 @@ def main() -> int:
             / synth.sample_rate
     wall = time.perf_counter() - t0
     launches = {"fused_vocoder_tc": cuda_vocoder.LAUNCHES_TC,
-                "fused_vocoder_fma": cuda_vocoder.LAUNCHES_FMA,
+                "fused_vocoder_tc32": cuda_vocoder.LAUNCHES_TC32,
                 "probe": build.PROBE_LAUNCHES}
     if min(launches.values()) < 1:
         raise RuntimeError(f"main path skipped a kernel: {launches}")
@@ -459,21 +513,26 @@ def main() -> int:
 
     def vocoder_entry(cd, source, tol):
         t = times[cd]
-        return {"name": t["kernel"], "route": "cuda", "source": source,
-                "replaces": f"{replaces}, compute_dtype={cd}",
-                "launches": launches[t["kernel"]], "max_abs_err": worst[cd],
-                "tol": tol, "compute_dtype": cd,
-                "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-                "module_ms": t["module_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": None,
-                "per_stage_floor_ms": t["per_stage_floor_ms"],
-                "stage_ms": [st["ms"] for st in t["stages"]],
-                "shape": [B, T, c_mel]}
+        entry = {"name": t["kernel"], "route": "cuda", "source": source,
+                 "replaces": f"{replaces}, compute_dtype={cd}",
+                 "launches": launches[t["kernel"]], "max_abs_err": worst[cd],
+                 "tol": tol, "compute_dtype": cd,
+                 "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                 "module_ms": t["module_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 "per_stage_floor_ms": t["per_stage_floor_ms"],
+                 "stage_ms": [st["ms"] for st in t["stages"]],
+                 "shape": [B, T, c_mel]}
+        if "fma_bound_ms" in t:
+            entry["fma_bound_ms"] = t["fma_bound_ms"]
+        return entry
 
+    # the probe's "ms" is its kernel's own device time; "event_ms" the same
+    # 200 calls by CUDA events, which the host's issue rate sets
     emit({"kernels": [
         vocoder_entry("bf16", "m2tts_tpu_torch/csrc/vocoder_tc.cu",
                       {"bf16": BF16_TOL, "bf16_vs_f32": BF16_VS_F32}),
-        vocoder_entry("f32", "m2tts_tpu_torch/csrc/vocoder_fused.cu",
+        vocoder_entry("f32", "m2tts_tpu_torch/csrc/vocoder_tc32.cu",
                       {"f32": F32_TOL}),
         {"name": "probe_add_one", "route": "cuda",
          "source": "m2tts_tpu_torch/csrc/probe.cu",
@@ -481,10 +540,16 @@ def main() -> int:
                      "(Synthesizer._pallas_available)",
          "launches": launches["probe"], "max_abs_err": probe_err,
          "tol": {"max_abs": 0.0},
-         "ms": probe_ms, "plain_ms": probe_plain_ms,
+         "ms": probe_t["probe"]["device_ms"],
+         "plain_ms": probe_t["plain"]["device_ms"],
          "module_ms": None, "bound_ms": 2 * px.numel() * 4
          / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": probe_lib_ms, "shape": list(px.shape)},
+         "library_ms": probe_t["library"]["device_ms"],
+         "event_ms": probe_t["probe"]["event_ms"],
+         "library_event_ms": probe_t["library"]["event_ms"],
+         "host_issue_ms": probe_t["probe"]["host_issue_ms"],
+         "library_host_issue_ms": probe_t["library"]["host_issue_ms"],
+         "shape": list(px.shape)},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

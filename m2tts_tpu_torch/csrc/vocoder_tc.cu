@@ -5,8 +5,8 @@
 //
 // Replaces, for compute_dtype='bf16', the TPU kernels
 // m2tts_tpu/ops/pallas/vocoder_packed.py (fused_vocoder_packed_forward) and
-// m2tts_tpu/ops/pallas/vocoder.py (fused_vocoder_forward). The f32 path keeps
-// the FMA kernel of vocoder_fused.cu.
+// m2tts_tpu/ops/pallas/vocoder.py (fused_vocoder_forward). The f32 path is
+// the 3xTF32 kernel of vocoder_tc32.cu; both include tc_common.cuh.
 //
 // Per stage (input rate T_in, rate r, C_in -> C_out channels), a block owns
 // q_tile input frames of one utterance, N = q_tile*r output frames, and keeps
@@ -46,15 +46,10 @@
 // mel frame across the stages).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;    // two warpgroups
-constexpr int kMTW = 4;          // m-tiles (64 rows) a warpgroup accumulates
-constexpr int kSlots = 2;        // weight ring depth
-constexpr size_t kSmemMax = 227 * 1024;
 
 typedef __nv_bfloat16 bf16;
 
@@ -104,24 +99,6 @@ __device__ __forceinline__ void wgmma(float (&d)[NW / 2], uint64_t a, uint64_t b
   else wgmma_n64(d, a, b);
 }
 
-// Descriptor of a no-swizzle K-major operand: 8-row x 16-byte core
-// matrices, `lbo` bytes to the next 8 K values, `sbo` bytes to the next 8
-// rows.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float leaky(float v) { return fmaxf(v, 0.1f * v); }
-
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -139,24 +116,6 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t a, uint32_t 
 __device__ __forceinline__ void stmatrix_x2(uint32_t addr, uint32_t a, uint32_t b) {
   asm volatile("stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1, %2};\n"
                :: "r"(addr), "r"(a), "r"(b));
-}
-
-__host__ __device__ __forceinline__ int floordiv(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-__host__ __device__ __forceinline__ size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
-
-// Warpgroups side by side along a pass's columns (2), or splitting its
-// m-tiles (1).
-__host__ __device__ inline int col_wgs(int ncols, int nw) { return ncols % (2 * nw) == 0 ? 2 : 1; }
-
-// Rows a pass's 64-row m-tiles cover: with one warpgroup a column block,
-// both run the same number of tiles.
-__host__ __device__ inline int tile_rows(int rows, int wn) {
-  return wn == 2 ? cdiv(rows, 64) * 64 : cdiv(rows, 128) * 128;
 }
 
 struct TcParams {
@@ -182,8 +141,6 @@ struct TcGeom {
   int rm, rx, ry, rh, ro;
   size_t off_ring, off_y, off_h, off_m, off_o, bytes;
 };
-
-__host__ __device__ inline int odd(int v) { return v | 1; }
 
 __host__ __device__ inline TcGeom geometry(const TcParams& p) {
   TcGeom g;
@@ -216,43 +173,6 @@ __host__ __device__ inline TcGeom geometry(const TcParams& p) {
   g.bytes = align128(g.off_o + (size_t)p.cop * g.ro * 2);
   return g;
 }
-
-// The weight ring: chunk c lives in slot c % kSlots; thread 0 issues the
-// copies, every thread waits on the slot's mbarrier with parity (c/kSlots)&1.
-struct Ring {
-  uint32_t bars, slots;
-  const unsigned char* w;
-  const int* off;
-  int slot_bytes, nchunks, next;
-
-  __device__ void issue(int c) const {
-    const uint32_t bar = bars + 8 * (c % kSlots);
-    const int o = __ldg(off + c);
-    const uint32_t bytes = (uint32_t)(__ldg(off + c + 1) - o);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(slots + (uint32_t)((c % kSlots) * slot_bytes)), "l"(w + o), "r"(bytes),
-           "r"(bar)
-        : "memory");
-  }
-
-  __device__ uint32_t wait(int c) const {
-    const uint32_t bar = bars + 8 * (c % kSlots);
-    const uint32_t parity = (c / kSlots) & 1;
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n.reg .pred P;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, P;\n}\n"
-          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    }
-    return slots + (uint32_t)((c % kSlots) * slot_bytes);
-  }
-};
 
 // One k=3 pass: out[o, col] = sum_t A[o + t] @ W_t[:, col] over the rows
 // of mt 64-row tiles, cols < ncols, K = cin. A is [cin/8][ra][8] bf16 in
@@ -389,12 +309,7 @@ __global__ void __launch_bounds__(kThreads, NW == 64 ? 1 : NW == 32 ? 2 : 3) tc_
   Ring ring{smem_addr(smem), smem_addr(smem + g.off_ring),
             reinterpret_cast<const unsigned char*>(p.w), p.chunk_off, p.slot_bytes,
             p.nchunks, 0};
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(ring.bars + 8 * s)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
   if (threadIdx.x == 0)
     for (int c = 0; c < kSlots && c < p.nchunks; ++c) ring.issue(c);
@@ -528,17 +443,12 @@ __global__ void __launch_bounds__(kThreads, NW == 64 ? 1 : NW == 32 ? 2 : 3) tc_
   }
 }
 
-// A pass's m-tiles must fit the warpgroups' accumulators.
-bool fits(int ncols, int nw, int rows) {
-  return tile_rows(rows, col_wgs(ncols, nw)) <= 64 * kMTW * (3 - col_wgs(ncols, nw));
-}
-
 template <int NW>
 int launch(const TcParams& p, int B, cudaStream_t stream) {
   const TcGeom g = geometry(p);
   if (g.bytes > kSmemMax) return (int)cudaErrorInvalidValue;
-  if ((p.first && !fits(p.cip, NW, g.nx)) || !fits(p.r * p.cop, NW, g.nqy) ||
-      !fits(p.cop, NW, g.nh) || !fits(p.cop, NW, g.n_o))
+  if ((p.first && !fits(p.cip, NW, g.nx, kMTW)) || !fits(p.r * p.cop, NW, g.nqy, kMTW) ||
+      !fits(p.cop, NW, g.nh, kMTW) || !fits(p.cop, NW, g.n_o, kMTW))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(tc_stage_kernel<NW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,8 @@
 """Build, load and probe the port's CUDA kernels.
 
 Every ``m2tts_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for sm_90a into
-``build/kernels/lib<name>-<hash of source and flags>.so`` at first use and
+``build/kernels/lib<name>-<hash of source, shared headers and flags>.so``
+at first use and
 loaded with ctypes (plain C entry points, no PyTorch headers, so a build
 takes seconds). Nothing is built when the package is imported.
 
@@ -44,6 +45,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -91,17 +94,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "probe":
         lib.m2tts_probe_add_one.argtypes = [p, p, i, p]
         lib.m2tts_probe_add_one.restype = i
-    elif name == "vocoder_fused":
-        lib.m2tts_vocoder_stage.argtypes = [p] * 12 + [i] * 8 + [p]
-        lib.m2tts_vocoder_stage.restype = i
-        lib.m2tts_vocoder_stage_plan.argtypes = [i] * 7 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
-        lib.m2tts_vocoder_stage_plan.restype = i
-    elif name == "vocoder_tc":
-        lib.m2tts_vocoder_tc_stage.argtypes = [p] * 10 + [i] * 16 + [p]
-        lib.m2tts_vocoder_tc_stage.restype = i
-        lib.m2tts_vocoder_tc_smem.argtypes = [i] * 9
-        lib.m2tts_vocoder_tc_smem.restype = ctypes.c_longlong
+    else:  # vocoder_tc (bf16); vocoder_tc32 (f32) adds the tconv's layout
+        pre = "m2tts_vocoder_" + name[len("vocoder_"):]
+        stage, smem = getattr(lib, pre + "_stage"), getattr(lib, pre + "_smem")
+        extra = int(name == "vocoder_tc32")
+        stage.argtypes = [p] * 10 + [i] * (16 + 2 * extra) + [p]
+        stage.restype = i
+        smem.argtypes = [i] * (9 + extra)
+        smem.restype = ctypes.c_longlong
 
 
 def check(err: int, what: str) -> None:
@@ -113,18 +113,22 @@ def check(err: int, what: str) -> None:
 
 #: launches of the probe kernel
 PROBE_LAUNCHES = 0
+_PROBE = None  # the probe's C entry point, bound once
 
 
 def probe_add_one(x: torch.Tensor) -> torch.Tensor:
     """y = x + 1 for a contiguous f32 CUDA tensor, by the probe kernel."""
-    global PROBE_LAUNCHES
+    global PROBE_LAUNCHES, _PROBE
     if x.device.type != "cuda" or x.dtype != torch.float32 \
             or not x.is_contiguous():
         raise ValueError("probe_add_one takes a contiguous f32 CUDA tensor")
+    if _PROBE is None:
+        _PROBE = load("probe").m2tts_probe_add_one
     y = torch.empty_like(x)
-    err = load("probe").m2tts_probe_add_one(
-        x.data_ptr(), y.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the raw handle of the current stream of x's device, without building
+    # a torch.cuda.Stream object
+    err = _PROBE(x.data_ptr(), y.data_ptr(), x.numel(),
+                 torch._C._cuda_getCurrentRawStream(x.device.index))
     PROBE_LAUNCHES += 1
     check(err, "probe kernel launch")
     return y

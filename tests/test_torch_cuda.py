@@ -1,7 +1,9 @@
 """Cases of the PyTorch port that need a CUDA device: the fused vocoder
-kernels (tensor-core in bf16, FMA in f32) against their plain versions,
-whole and stage by stage, the kernel probe, and the ``auto`` Synthesizer
-through the kernels against the ``mm`` backend. They skip without a
+kernels (tensor cores in bf16, 3×TF32 tensor cores in f32) against their
+plain versions, whole and stage by stage, at widths 64 to 512 (192 and 512
+run the residual convs as several column groups a block), the kernel
+probe, and the ``auto`` Synthesizer through the kernels against the ``mm``
+backend. They skip without a
 card. This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
@@ -41,7 +43,7 @@ def test_probe_and_kernels_available():
 
 
 def _counts():
-    return {"bf16": cuda_vocoder.LAUNCHES_TC, "f32": cuda_vocoder.LAUNCHES_FMA}
+    return {"bf16": cuda_vocoder.LAUNCHES_TC, "f32": cuda_vocoder.LAUNCHES_TC32}
 
 
 def _held(out, ref, cd):
@@ -100,9 +102,11 @@ def test_each_stage_matches_plain(cd, shape):
 
 
 @needs_cuda
-def test_tc_layout_matches_the_library():
-    for st in cuda_vocoder.tc_plan((8, 8, 2, 2), 80, 256):
-        assert cuda_vocoder.tc_smem_bytes(st) == st["smem_bytes"]
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_tc_layout_matches_the_library(cd):
+    for channels in (256, 512):
+        for st in cuda_vocoder.tc_plan((8, 8, 2, 2), 80, channels, cd):
+            assert cuda_vocoder.tc_smem_bytes(st) == st["smem_bytes"]
 
 
 @needs_cuda

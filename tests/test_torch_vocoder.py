@@ -1,15 +1,18 @@
 """Vocoder of the PyTorch port: packed weights, the plain packed-matmul
 forward and the ``Vocoder`` module against the JAX packing and both Pallas
-kernels (interpret mode), the per-stage plain version, the tensor-core
-kernel's tiling and weight chunks, and the CUDA wrappers' CPU behaviour.
-The cases that need a card are in ``test_torch_cuda.py``.
+kernels (interpret mode), the per-stage plain version, the 3×TF32 split of
+the f32 kernel, both tensor-core kernels' tiling and weight chunks, and the
+CUDA wrappers' CPU behaviour. The cases that need a card are in
+``test_torch_cuda.py``.
 
-Tolerances: f32 atol 3e-5 / rtol 1e-4. bf16 (the port's plain version
+Tolerances: f32 atol 3e-5 / rtol 1e-4 (the 3×TF32 emulation too). bf16 (the port's plain version
 against the Pallas kernels, both with bf16 matmul inputs, f32 sums and the
 same rounding points): max abs 2e-2 and mean abs 1e-3 — the sums run in
 another order, so an intermediate may round to the neighbouring bf16 value
 (2^-8 relative) and that propagates.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +103,50 @@ def test_plain_and_module_equal_pallas_f32(setup):
         np.testing.assert_allclose(out, ref_padded, **F32)
 
 
+def test_3xtf32_emulation_equals_pallas_f32(setup):
+    """The f32 kernel's arithmetic on the CPU: every stage product as the
+    three TF32 products of ``tf32_split``'s planes, summed in f32, holds
+    the f32 bar against the Pallas kernel. (It cannot show the tensor
+    cores' own accumulation order; the card tests do.)"""
+    rates, voc, jpacked, mel = setup
+    tpacked = tmm.pack_vocoder_weights(voc)
+    ref = np.asarray(pallas_packed(jnp.asarray(mel), jpacked, rates,
+                                   tile=16, interpret=True))
+
+    def mm(x, w, dt):
+        assert dt == torch.float32
+        return cuda_vocoder.matmul_3xtf32(x.float(), w.float())
+
+    with mock.patch.object(tmm, "_mm", mm):
+        out = tmm.vocoder_mm_forward(torch.from_numpy(mel), tpacked).numpy()
+    np.testing.assert_allclose(out, ref, **F32)
+    # one TF32 product alone does not hold the bar: the split is needed
+    with mock.patch.object(tmm, "_mm", lambda x, w, dt: (
+            cuda_vocoder.tf32_split(x)[0] @ cuda_vocoder.tf32_split(w)[0])):
+        one = tmm.vocoder_mm_forward(torch.from_numpy(mel), tpacked).numpy()
+    assert not np.allclose(one, ref, **F32)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "trunc"])
+def test_tf32_split_holds_each_value(rounding):
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        scale=3.0, size=4096).astype(np.float32))
+    x[:4] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    hi, lo = cuda_vocoder.tf32_split(x, rounding)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    if rounding == "rna":
+        assert not (lo.view(torch.int32) & 0x1FFF).any()
+        assert ((hi + lo - x).abs() <= 2.0 ** -22 * x.abs()).all()
+        # a tie rounds away from zero, as cvt.rna.tf32.f32
+        assert hi[2].item() == 1.0 + 2.0 ** -10
+        assert hi[3].item() == -hi[2].item()
+    else:
+        # hi is x cut to TF32 (|x - hi| < 2^-10 |x|), lo the exact rest
+        assert torch.equal(hi + lo, x)
+        assert ((lo.abs() < 2.0 ** -10 * x.abs()) | (x == 0)).all()
+        assert hi[2].item() == 1.0
+
+
 def test_plain_bf16_equals_pallas_bf16(setup):
     rates, voc, jpacked, mel = setup
     tpacked = tmm.pack_vocoder_weights(voc, "bf16")
@@ -139,7 +186,7 @@ def test_stages_chain_to_forward(setup, cd, shape):
 def test_wrapper_on_cpu_takes_plain_path(setup, cd):
     rates, voc, _, mel = setup
     packed = tmm.pack_vocoder_weights(voc, cd)
-    before = (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_FMA)
+    before = (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_TC32)
     out = cuda_vocoder.fused_vocoder_forward(torch.from_numpy(mel), packed,
                                              rates, cd)
     np.testing.assert_array_equal(
@@ -149,47 +196,67 @@ def test_wrapper_on_cpu_takes_plain_path(setup, cd):
     for i in range(len(rates)):
         x = cuda_vocoder.fused_vocoder_stage(x, packed, i, cd)
     np.testing.assert_array_equal(x.numpy(), out.numpy())
-    assert (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_FMA) == before
+    assert (cuda_vocoder.LAUNCHES_TC, cuda_vocoder.LAUNCHES_TC32) == before
 
 
+@pytest.mark.parametrize("cd", ["bf16", "f32"])
 @pytest.mark.parametrize("rates,c_mel,channels",
                          [((8, 8, 2, 2), 80, 256), ((4, 4, 2, 2), 16, 64),
                           ((8, 8, 2, 2), 16, 128), ((2, 2), 5, 24),
                           ((8, 8, 2, 2), 80, 512), ((8, 8, 2, 2), 16, 192)],
                          ids=["flagship", "64x-c64", "256x-c128", "odd-c",
                               "flagship-xl", "256x-c192"])
-def test_tc_plan_fits_the_card(rates, c_mel, channels):
-    """Every stage's tiling fits Hopper's shared memory and the
-    warpgroups' accumulators, and the stage floors cover every pass."""
-    for st in cuda_vocoder.tc_plan(rates, c_mel, channels):
+def test_tc_plan_fits_the_card(rates, c_mel, channels, cd):
+    """Every stage's tiling, of the bf16 and of the f32 kernel, fits
+    Hopper's shared memory (per block, at the blocks an SM the kernel's
+    launch bounds ask for) and the warpgroups' accumulators."""
+    kern = cuda_vocoder._KERNELS[cd]
+    for st in cuda_vocoder.tc_plan(rates, c_mel, channels, cd):
+        assert st["compute_dtype"] == cd
         assert st["cip"] % 16 == st["cop"] % 16 == st["cmp"] % 16 == 0
         assert st["cip"] % st["nw"] == st["cop"] % st["nw"] == 0
-        assert st["smem_bytes"] <= cuda_vocoder.SMEM_MAX
+        assert st["smem_bytes"] * kern["blocks"][st["nw"]] \
+            <= cuda_vocoder.SMEM_MAX
         assert st["slot_bytes"] % 128 == 0
         geo = cuda_vocoder.tc_geometry(
             st["cmp"], st["cip"], st["cop"], st["r"], st["first"],
-            st["last"], st["q_tile"], st["nw"], st["slot_bytes"])
+            st["last"], st["q_tile"], st["nw"], st["slot_bytes"], cd,
+            st.get("nq", 0))
         assert geo["smem"] == st["smem_bytes"]
         kcs = {"in": st["kc_in"], "t": st["kc_t"], "r": st["kc_r"]}
         for ps in cuda_vocoder._passes(st):
             kc = kcs[ps["name"]]
-            assert ps["cin"] % kc == 0 and kc % 16 == 0
+            assert ps["cin"] % kc == 0 and kc % kern["k"] == 0
             assert cuda_vocoder._chunk_bytes(st, ps, kc) <= st["slot_bytes"]
-            wn = cuda_vocoder._wn(ps["ncols"], st["nw"])
+            assert ps["ncols"] % ps["width"] == 0 and ps["width"] <= 256
+            wn = cuda_vocoder._wn(ps["ncols"], ps["width"])
             tiles = cuda_vocoder._tile_rows(geo[ps["rows"]], wn) // 64
-            assert tiles <= 4 * (3 - wn)
+            if ps["tconv"] and ps["nq"]:  # the swapped tconv: rows on N
+                assert geo["nqy"] <= ps["nq"] and ps["nq"] % 8 == 0
+                assert ps["ncols"] % 256 == 0 and st["nw"] == 64
+            else:
+                assert tiles <= ps["mt"] * (3 - wn)
 
 
-def test_tc_chunks_rebuild_the_weights(setup):
-    """The chunk stream the tensor-core kernel copies holds every packed
-    weight at the place the kernel reads it, and nothing else but zeros."""
+@pytest.mark.parametrize("cd", ["bf16", "f32"])
+def test_tc_chunks_rebuild_the_weights(setup, cd):
+    """The chunk stream a tensor-core kernel copies holds every packed
+    weight at the place the kernel reads it, and nothing else but zeros.
+    For f32 each chunk is a TF32 hi plane and a lo plane (low 13 mantissa
+    bits zero in both) whose sum is the weight within 2^-22 relative."""
     rates, voc, _, _ = setup
-    packed = tmm.pack_vocoder_weights(voc, "bf16")
-    plan = cuda_vocoder.tc_plan(rates, 16, voc.input_conv.conv.weight.shape[0])
+    packed = tmm.pack_vocoder_weights(voc, cd)
+    plan = cuda_vocoder.tc_plan(rates, 16,
+                                voc.input_conv.conv.weight.shape[0], cd)
+    f32 = cd == "f32"
+    g, es = (4, 4) if f32 else (8, 2)
     for i, st in enumerate(plan):
         ops = cuda_vocoder._tc_pack_stage(packed, i, st, "cpu")
         w, off = ops["w"].float(), ops["off"].tolist()
-        assert off[-1] == 2 * w.numel() and len(off) == ops["nchunks"] + 1
+        assert ops["w"].dtype == (torch.float32 if f32 else torch.bfloat16)
+        assert off[-1] == es * w.numel() and len(off) == ops["nchunks"] + 1
+        if f32:
+            assert not (w.view(torch.int32) & 0x1FFF).any()
         c, nw = 0, st["nw"]
         kcs = {"in": st["kc_in"], "t": st["kc_t"], "r": st["kc_r"]}
         stage = packed["stages"][i]
@@ -198,28 +265,36 @@ def test_tc_chunks_rebuild_the_weights(setup):
             mats.insert(0, packed["input_conv"]["w"])
         for ps, ref in zip(cuda_vocoder._passes(st), mats):
             # rebuild [3, K, ncols] as the kernel addresses it
-            kc, ng = kcs[ps["name"]], cuda_vocoder._wn(ps["ncols"], nw) * nw
+            kc = kcs[ps["name"]]
+            ng = cuda_vocoder._wn(ps["ncols"], ps["width"]) * ps["width"]
             half = (st["r"] // 2) * st["cop"]
             got = torch.zeros(3, ps["cin"], ps["ncols"])
             for g0 in range(0, ps["ncols"], ng):
                 t0, t1 = cuda_vocoder._group_taps(g0, ng, ps["tconv"], half)
                 for k0 in range(0, ps["cin"], kc):
-                    blk = w[off[c] // 2:off[c + 1] // 2]
+                    blk = w[off[c] // es:off[c + 1] // es]
+                    if f32:  # hi plane + lo plane
+                        blk = blk[:blk.numel() // 2] + blk[blk.numel() // 2:]
                     got[t0:t1, k0:k0 + kc, g0:g0 + ng] = blk.reshape(
-                        t1 - t0, kc // 8, ng, 8).permute(0, 1, 3, 2).reshape(
+                        t1 - t0, kc // g, ng, g).permute(0, 1, 3, 2).reshape(
                         t1 - t0, kc, ng)
                     c += 1
             cin, cols = ref.shape[0] // 3, ref.shape[1]
             ref3 = ref.float().reshape(3, cin, cols)
-            total = got.abs().sum()
+            pad = got.clone()
             if ps["tconv"]:
                 r, cout = st["r"], st["c_out"]
                 got = got.reshape(3, ps["cin"], r, st["cop"])[:, :cin, :, :cout]
+                pad.reshape(3, ps["cin"], r, st["cop"])[:, :cin, :, :cout] = 0
                 ref3 = ref3.reshape(3, cin, r, cout)
             else:
                 got = got[:, :cin, :cols]
-            torch.testing.assert_close(got, ref3, rtol=0, atol=0)
-            assert got.abs().sum() == total  # the padding is zero
+                pad[:, :cin, :cols] = 0
+            if f32:
+                assert ((got - ref3).abs() <= 2.0 ** -22 * ref3.abs()).all()
+            else:
+                torch.testing.assert_close(got, ref3, rtol=0, atol=0)
+            assert not pad.any()  # the padding is zero
         assert c == ops["nchunks"]
 
 
