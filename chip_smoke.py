@@ -13,15 +13,34 @@ its device time beside ``torch.add``'s), then drives
 the flagship serving path (``serving.pipeline.from_config(FLAGSHIP_MODEL)``,
 seeded random weights, ``vocoder_backend='auto'``) on eight texts in bf16
 and f32, checks its audio against the plain packed-matmul vocoder, and
-shows through the launch counters that the path ran the kernels. One JSON
-line per phase; the line before the last lists the kernels, the last is
+shows through the launch counters that the path ran the kernels. Then the
+serving paths on the same weights and texts, each with the counters zeroed
+just before it and read just after:
+
+- ``streaming``: ``StreamingSynthesizer`` (64-frame chunks, 4-frame halo)
+  in f32 (``vocoder_tc32.cu``) and bf16 (``vocoder_tc.cu``), each stream
+  held against its mel vocoded whole by the kernel and against the plain
+  version's stream; a 64-frame mel through the short path (the f32 kernel
+  in both); first-chunk latency, per-chunk device time, real-time factor;
+- ``stream_batcher``: eight concurrent streams through a ``StreamBatcher``,
+  each equal to its solo stream, with fewer chunk calls than chunks;
+- ``dynamic_batcher``: sixteen concurrent ``submit`` calls, fewer batches
+  than requests, frames equal to ``synthesize_batch``'s;
+- ``http``: the server's routes on 127.0.0.1 (``make_handler`` with the
+  batchers), each payload against the direct call, ``/reload`` from a
+  checkpoint written by ``CheckpointManager``.
+
+One JSON line per phase; the line before the last lists the kernels (with
+the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
 code is nonzero. Needs one CUDA device, ``nvcc`` and no network or PyYAML.
 
     python3 chip_smoke.py --profile
 
 adds a ``main_path_profile`` line: device time by kernel name for one
-batch-64 ``synthesize_batch`` (torch.profiler) and the device's busy share.
+batch-64 ``synthesize_batch`` (torch.profiler) and the device's busy share,
+and a ``stream_profile_f32`` and ``stream_profile_bf16`` line: the same for
+one stream of the longest text.
 """
 
 from __future__ import annotations
@@ -193,7 +212,8 @@ def device_ms(fn, iters: int) -> dict:
             "kernel_names": sorted({e.key[:60] for e in ev})}
 
 
-def profile_batch(run, card: str, top: int = 12) -> dict:
+def profile_batch(run, card: str, top: int = 12,
+                  phase: str = "main_path_profile") -> dict:
     """Device time of one ``run()`` by kernel name (torch.profiler), and the
     device's busy share of the host wall time around it."""
     from torch.autograd import DeviceType
@@ -213,10 +233,431 @@ def profile_batch(run, card: str, top: int = 12) -> dict:
     busy_us = sum(k[1] for k in kernels)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"phase": "main_path_profile", "card": card, "wall_us": wall_us,
+    return {"phase": phase, "card": card, "wall_us": wall_us,
             "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
+            "device_ops": sum(k[2] for k in kernels),
             "top": [{"name": n[:80], "us": t, "calls": c}
                     for n, t, c in kernels[:top]]}
+
+
+class Counters:
+    """The kernels' launch counters: zeroed just before a path is driven,
+    read just after."""
+
+    NAMES = ("fused_vocoder_tc", "fused_vocoder_tc32", "probe")
+
+    def __init__(self, build, cuda_vocoder):
+        self.build, self.cuda_vocoder = build, cuda_vocoder
+
+    def zero(self) -> None:
+        self.cuda_vocoder.LAUNCHES_TC = 0
+        self.cuda_vocoder.LAUNCHES_TC32 = 0
+        self.build.PROBE_LAUNCHES = 0
+
+    def read(self) -> dict:
+        return dict(zip(self.NAMES, (self.cuda_vocoder.LAUNCHES_TC,
+                                     self.cuda_vocoder.LAUNCHES_TC32,
+                                     self.build.PROBE_LAUNCHES)))
+
+
+def run_threads(fn, n: int, timeout: float = 120.0):
+    """fn(i) in n daemon threads released together by a barrier; (results,
+    wall seconds). Raises the first error, or when a thread hangs."""
+    import threading
+
+    results, errors = [None] * n, []
+    barrier = threading.Barrier(n)
+
+    def worker(i):
+        try:
+            barrier.wait(timeout=timeout)
+            results[i] = fn(i)
+        except BaseException as e:  # re-raised in the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a worker thread hung")
+    if errors:
+        raise errors[0]
+    return results, wall
+
+
+def pcm_diff(a: np.ndarray, b: np.ndarray, bar, what: str) -> dict:
+    """Max and mean |a - b| in LSB, held against bar = (max, mean or
+    None)."""
+    if a.shape != b.shape:
+        raise RuntimeError(f"{what}: {a.shape} samples against {b.shape}")
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    lsb, mean = int(d.max(initial=0)), float(d.mean()) if d.size else 0.0
+    if lsb > bar[0] or (bar[1] is not None and mean > bar[1]):
+        raise RuntimeError(f"{what}: PCM differs by {lsb} LSB (mean {mean})")
+    return {"max_pcm_lsb": lsb, "mean_pcm_lsb": mean}
+
+
+def streaming_phase(model, scale: float, sample_rate: int, card: str,
+                    counters: Counters) -> dict:
+    """StreamingSynthesizer at the flagship width in f32 (→ vocoder_tc32.cu)
+    and bf16 (→ vocoder_tc.cu) over the eight texts, and one mel of 64
+    frames through the short path (→ vocoder_tc32.cu in both). Each stream
+    is held against its mel vocoded whole by the kernel and against the
+    plain version's stream; then first-chunk latency, per-chunk device time
+    and the stream's real-time factor."""
+    from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
+    from m2tts_tpu_torch.ops.vocoder_mm import (pack_vocoder_weights,
+                                                vocoder_mm_forward)
+    from m2tts_tpu_torch.serving.streaming import (StreamingSynthesizer,
+                                                   StreamingVocoder)
+
+    rates, U = model.upsample_rates, model.total_upsample
+    ss = {cd: StreamingSynthesizer(model, chunk_frames=64, max_frames=512,
+                                   text_bucket=128, compute_dtype=cd,
+                                   device="cuda")
+          for cd in ("f32", "bf16")}
+    if any(s.vocoder.vocoder_backend != "cuda" for s in ss.values()):
+        raise RuntimeError("streaming 'auto' did not resolve to the kernels")
+    W = ss["f32"].vocoder._window
+    # every text's mel as the stream's acoustic pass makes it
+    mels = {}
+    with torch.inference_mode():
+        for cd, s in ss.items():
+            mels[cd] = []
+            for text in EVAL_TEXTS:
+                enc = s.text_processor.batch([text], s.text_bucket)
+                mel, total = s._acoustic(
+                    torch.from_numpy(enc["phoneme_ids"]).cuda(),
+                    torch.from_numpy(enc["lengths"]).cuda(), scale)
+                mels[cd].append(mel[0, :min(int(total[0]), s.max_frames)])
+    short_mel = mels["f32"][0][:W - 8]
+    if not 0 < short_mel.shape[0] <= W:
+        raise RuntimeError(f"short-path mel of {short_mel.shape[0]} frames")
+
+    counters.zero()
+    streams, short, by_part = {}, {}, {}
+    for cd, s in ss.items():
+        c0 = counters.read()
+        streams[cd] = [np.concatenate(list(s.stream(t, scale)))
+                       for t in EVAL_TEXTS]
+        c1 = counters.read()
+        short[cd] = s.vocoder.synthesize(short_mel)
+        c2 = counters.read()
+        by_part[cd] = {"streams": {k: c1[k] - c0[k] for k in c0},
+                       "short_path": {k: c2[k] - c1[k] for k in c0}}
+        sp = by_part[cd]["short_path"]
+        if sp["fused_vocoder_tc32"] != len(rates) or sp["fused_vocoder_tc"]:
+            raise RuntimeError(f"{cd} short path launched {sp}, expected "
+                               f"{len(rates)} f32-kernel stage launches")
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1 or launches["fused_vocoder_tc32"] < 1:
+        raise RuntimeError(f"streaming skipped a kernel: {launches}")
+
+    out = {"phase": "streaming", "card": card, "launches": launches,
+           "chunk_frames": 64, "window_frames": W,
+           "short_path_frames": int(short_mel.shape[0])}
+    for cd, s in ss.items():
+        sv = s.vocoder
+        packed = {k: pack_vocoder_weights(model.vocoder, k)
+                  for k in {cd, "f32"}}
+        plain = StreamingVocoder(model, chunk_frames=64, compute_dtype=cd,
+                                 vocoder_backend="mm", device="cuda")
+        err_whole = err_plain = 0.0
+        for i, (mel, streamed) in enumerate(zip(mels[cd], streams[cd])):
+            if streamed.shape != (mel.shape[0] * U,):
+                raise RuntimeError(f"{cd} stream {i}: {streamed.shape} "
+                                   f"samples for {mel.shape[0]} frames")
+            got = torch.from_numpy(streamed)
+            whole = fused_vocoder_forward(mel[None].contiguous(), packed[cd],
+                                          rates, cd)[0].cpu()
+            err_whole = max(err_whole, held(got, whole, cd,
+                                            f"{cd} stream {i} vs whole"))
+            err_plain = max(err_plain, held(
+                got, torch.from_numpy(plain.synthesize(mel)), cd,
+                f"{cd} stream {i} vs the plain stream"))
+        ref_short = vocoder_mm_forward(short_mel[None], packed["f32"],
+                                       "f32")[0].cpu()
+        err_short = held(torch.from_numpy(short[cd]), ref_short, "f32",
+                         f"{cd} short path vs vocoder_mm_forward")
+        # one chunk window [1, W, C] through the kernel and the plain
+        # version, by CUDA events
+        win = mels[cd][0][None, :W].contiguous()
+        with torch.inference_mode():
+            chunk_ms = cuda_time_ms(lambda: sv._run_chunk(win), 50)
+            plain_ms = cuda_time_ms(lambda: plain._run_chunk(win), 20)
+        flops, nbytes = vocoder_work(1, W, model.mel_channels,
+                                     model.vocoder_channels, rates,
+                                     4 if cd == "f32" else 2)
+        chunk_bound, chunk_bound_by = bound(flops, nbytes, cd)
+        first, rtf, per_chunk = [], [], []
+        for i in range(12):  # warm: every text has streamed once above
+            text = EVAL_TEXTS[i % len(EVAL_TEXTS)]
+            t0 = time.perf_counter()
+            it = s.stream(text, scale)
+            c0 = next(it)
+            t1 = time.perf_counter()
+            rest = list(it)
+            t2 = time.perf_counter()
+            samples = len(c0) + sum(len(c) for c in rest)
+            first.append((t1 - t0) * 1e3)
+            rtf.append((t2 - t0) / (samples / sample_rate))
+            per_chunk.append((t2 - t1) * 1e3 / len(rest))
+        out[cd] = {
+            "kernel": "fused_vocoder_tc32" if cd == "f32"
+            else "fused_vocoder_tc",
+            "launches": by_part[cd],
+            "frames": [int(m.shape[0]) for m in mels[cd]],
+            "chunks": [-(-int(m.shape[0]) // 64) for m in mels[cd]],
+            "max_abs_err_vs_whole": err_whole,
+            "max_abs_err_vs_plain": err_plain,
+            "short_path_max_abs_err": err_short,
+            "first_chunk_ms_median": float(np.median(first)),
+            "first_chunk_ms_min": min(first), "first_chunk_ms_max": max(first),
+            "host_ms_per_later_chunk_median": float(np.median(per_chunk)),
+            "stream_rtf_median": float(np.median(rtf)),
+            "timed_streams": len(first),
+            "chunk_device_ms": chunk_ms, "chunk_plain_ms": plain_ms,
+            "chunk_bound_ms": chunk_bound, "chunk_bound_by": chunk_bound_by,
+            "chunk_shape": list(win.shape)}
+    emit(out)
+    out["streamers"], out["streams"] = ss, streams
+    return out
+
+
+def stream_batcher_phase(streamer, solo, scale: float, card: str,
+                         counters: Counters) -> dict:
+    """Eight concurrent streams (the eight texts) through one StreamBatcher
+    over the bf16 streamer; each equals its solo stream."""
+    from m2tts_tpu_torch.serving.stream_batcher import StreamBatcher
+
+    sb = StreamBatcher(streamer, max_streams=8, max_wait_ms=20.0)
+    try:
+        warm = sb.warmup()
+        counters.zero()
+        got, wall = run_threads(lambda i: np.concatenate(list(sb.stream(
+            EVAL_TEXTS[i], scale, timeout=120))), len(EVAL_TEXTS))
+        launches = counters.read()
+    finally:
+        sb.close()
+    err = max(held(torch.from_numpy(g), torch.from_numpy(s), "bf16",
+                   f"batched stream {i} vs solo")
+              for i, (g, s) in enumerate(zip(got, solo)))
+    if not 0 < sb.chunk_dispatches < sb.chunks_emitted:
+        raise RuntimeError(f"no batching: {sb.chunk_dispatches} chunk calls "
+                           f"for {sb.chunks_emitted} chunks")
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"stream batcher skipped the kernel: {launches}")
+    audio_s = sum(len(g) for g in got) / streamer.sample_rate
+    out = {"phase": "stream_batcher", "card": card, "streams": len(got),
+           "launches": launches, "wall_s": wall,
+           "chunk_dispatches": sb.chunk_dispatches,
+           "chunks_emitted": sb.chunks_emitted,
+           "streams_served": sb.streams_served, "warmup_calls": warm,
+           "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
+           "max_abs_err_vs_solo": err}
+    emit(out)
+    return out
+
+
+def dynamic_batcher_phase(synth, scale: float, card: str, lsb_bar,
+                          counters: Counters) -> dict:
+    """Sixteen concurrent submits through one DynamicBatcher; frames equal
+    one synthesize_batch call's, PCM within the bf16 bar."""
+    from m2tts_tpu_torch.serving.batcher import DynamicBatcher
+
+    texts = (EVAL_TEXTS * 2)[:16]
+    ref = synth.synthesize_batch(texts, scale)
+    b = DynamicBatcher(synth, max_wait_ms=200.0)
+    try:
+        counters.zero()
+        got, wall = run_threads(
+            lambda i: b.submit(texts[i], scale, timeout=120), len(texts))
+        launches = counters.read()
+    finally:
+        b.close()
+    if b.batches_run >= len(texts):
+        raise RuntimeError(f"{b.batches_run} batches for {len(texts)} "
+                           "requests: nothing coalesced")
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"dynamic batcher skipped the kernel: {launches}")
+    worst = {"max_pcm_lsb": 0, "mean_pcm_lsb": 0.0}
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g["frames"] != r["frames"]:
+            raise RuntimeError(f"request {i}: {g['frames']} frames, "
+                               f"synthesize_batch {r['frames']}")
+        d = pcm_diff(g["audio_pcm"], r["audio_pcm"], lsb_bar,
+                     f"batched request {i}")
+        worst = {k: max(worst[k], d[k]) for k in worst}
+    out = {"phase": "dynamic_batcher", "card": card, "requests": len(texts),
+           "launches": launches, "batches_run": b.batches_run,
+           "requests_served": b.requests_served, "wall_s": wall,
+           "frames_equal": True, **worst,
+           "max_pcm_lsb_bar": lsb_bar[0]}
+    emit(out)
+    return out
+
+
+def _http(url: str, obj=None) -> tuple:
+    """GET (obj None) or POST JSON with a timeout; (content type, body).
+    Raises on any status but 200."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if obj is None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if obj is None else "POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if resp.status != 200:
+            raise RuntimeError(f"{url}: HTTP {resp.status}")
+        return resp.headers.get("Content-Type"), resp.read()
+
+
+def _http_chunked(port: int, path: str, obj) -> tuple:
+    """POST over a socket; (status line, headers, chunk payloads) with the
+    HTTP/1.1 chunked framing parsed."""
+    import socket
+
+    body = json.dumps(obj).encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+        s.sendall(f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                  "Content-Type: application/json\r\n"
+                  f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
+                  .encode() + body)
+        f = s.makefile("rb")
+        status = f.readline().decode().strip()
+        headers = {}
+        for line in iter(lambda: f.readline().decode().strip(), ""):
+            k, _, v = line.partition(":")
+            headers[k.strip().lower()] = v.strip()
+        chunks = []
+        while True:
+            size = int(f.readline().decode().strip(), 16)
+            data = f.read(size)
+            if len(data) != size or f.read(2) != b"\r\n":
+                raise RuntimeError(f"{path}: broken chunk framing")
+            if size == 0:
+                return status, headers, chunks
+            chunks.append(data)
+
+
+def http_phase(synth, streamer, scale: float, card: str, lsb_bar,
+               buckets: dict, counters: Counters) -> dict:
+    """The HTTP server (``make_handler`` with the batchers on) on
+    127.0.0.1: /healthz, /synthesize in pcm16 and μ-law, /synthesize_batch,
+    /synthesize_stream (chunked) and /reload from a checkpoint written by
+    CheckpointManager (weights from seed 1)."""
+    import base64
+    import io
+    import tempfile
+    import threading
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    from m2tts_tpu_torch.models.tts_model import build_model, init_params
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.serving import server as http_server
+    from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+
+    def pcm_of(wav: bytes) -> np.ndarray:
+        with wave.open(io.BytesIO(wav)) as f:
+            if f.getframerate() != synth.sample_rate:
+                raise RuntimeError(f"WAV at {f.getframerate()} Hz")
+            return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+    text, batch_texts = EVAL_TEXTS[0], EVAL_TEXTS[1:4]
+    req = {"text": text, "duration_scale": scale}
+    # what each route must answer, computed before the counted run
+    exp16 = synth.synthesize(text, scale)["audio_pcm"]
+    expmu = synth.synthesize(text, scale, pcm_format="mulaw")["audio_mulaw"]
+    expbatch = synth.synthesize_batch(batch_texts, scale)
+    # quantised as the streaming route quantises each chunk
+    expstream = (np.clip(np.concatenate(list(streamer.stream(text, scale))),
+                         -1.0, 1.0) * 32767.0).astype(np.int16)
+    with tempfile.TemporaryDirectory() as ckdir:
+        model1 = init_params(build_model(FLAGSHIP_MODEL),
+                             torch.Generator().manual_seed(1), "cpu")
+        CheckpointManager(ckdir).save(
+            1, {"generator": model1.state_dict(), "step": 1},
+            config={"model": FLAGSHIP_MODEL,
+                    "data": {"sample_rate": synth.sample_rate,
+                             "hop_length": synth.hop_length}})
+        httpd = ThreadingHTTPServer(
+            ("127.0.0.1", 0),
+            http_server.make_handler(synth, http_server.device_info(synth),
+                                     stream_chunk_frames=64,
+                                     dynamic_batch_wait_ms=10.0))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        port = httpd.server_address[1]
+        url = f"http://127.0.0.1:{port}"
+        try:
+            counters.zero()
+            t0 = time.perf_counter()
+            health = json.loads(_http(url + "/healthz")[1])
+            ctype16, wav16 = _http(url + "/synthesize", req)
+            ctypemu, wavmu = _http(url + "/synthesize",
+                                   {**req, "format": "mulaw"})
+            batch = json.loads(_http(url + "/synthesize_batch",
+                                     {"texts": batch_texts,
+                                      "duration_scale": scale})[1])
+            status, headers, chunks = _http_chunked(
+                port, "/synthesize_stream", req)
+            reloaded = json.loads(_http(url + "/reload",
+                                        {"checkpoint": ckdir})[1])
+            wav_after = _http(url + "/synthesize", req)[1]
+            wall = time.perf_counter() - t0
+            launches = counters.read()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        fresh = pipeline.from_checkpoint(ckdir, device="cuda", **buckets)
+        exp_after = fresh.synthesize(text, scale)["audio_pcm"]
+
+    if health.get("status") != "ok" or health.get("device") != str(
+            synth.device) or health.get("vocoder_backend") != "cuda":
+        raise RuntimeError(f"/healthz answered {health}")
+    if ctype16 != "audio/wav" or ctypemu != "audio/wav":
+        raise RuntimeError(f"/synthesize content types {ctype16}, {ctypemu}")
+    if not np.array_equal(pcm_of(wav16), exp16):
+        raise RuntimeError("/synthesize PCM differs from synth.synthesize")
+    if wavmu[20:22] != b"\x07\x00" or wavmu[58:] != expmu.tobytes():
+        raise RuntimeError("/synthesize μ-law differs from synth.synthesize")
+    for r, e in zip(batch["results"], expbatch):
+        if not np.array_equal(pcm_of(base64.b64decode(r["audio_b64"])),
+                              e["audio_pcm"]):
+            raise RuntimeError("/synthesize_batch PCM differs from "
+                               "synth.synthesize_batch")
+    if status != "HTTP/1.1 200 OK" \
+            or headers.get("transfer-encoding") != "chunked" \
+            or chunks[0] != http_server.wav_stream_header(synth.sample_rate):
+        raise RuntimeError(f"/synthesize_stream: {status} {headers}")
+    stream_pcm = np.frombuffer(b"".join(chunks[1:]), "<i2")
+    stream_d = pcm_diff(stream_pcm, expstream, lsb_bar,
+                        "/synthesize_stream vs the solo stream")
+    if reloaded.get("step") != 1:
+        raise RuntimeError(f"/reload answered {reloaded}")
+    after = pcm_of(wav_after)
+    if np.array_equal(after, exp16) or not np.array_equal(after, exp_after):
+        raise RuntimeError("/synthesize after /reload is not the fresh "
+                           "Synthesizer's PCM on the new weights")
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"the HTTP routes skipped the kernel: {launches}")
+    out = {"phase": "http", "card": card, "launches": launches,
+           "routes": ["/healthz", "/synthesize", "/synthesize (mulaw)",
+                      "/synthesize_batch", "/synthesize_stream", "/reload",
+                      "/synthesize (after reload)"],
+           "wall_s": wall, "stream_http_chunks": len(chunks) - 1,
+           "stream_vs_solo": stream_d, "healthz": health,
+           "reload": reloaded["step"]}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -414,9 +855,8 @@ def main() -> int:
     # a new process probes the kernels once when its first Synthesizer is
     # made; clear the cached answer so this run shows that launch too
     build._AVAILABLE = None
-    cuda_vocoder.LAUNCHES_TC = 0
-    cuda_vocoder.LAUNCHES_TC32 = 0
-    build.PROBE_LAUNCHES = 0
+    counters = Counters(build, cuda_vocoder)
+    counters.zero()
     buckets = {"text_buckets": (32, 64, 128),
                "frame_buckets": (128, 256, 384, 512),
                "batch_buckets": (1, 8, 32, 64)}
@@ -462,9 +902,7 @@ def main() -> int:
         audio_s += sum(r["frames"] for r in out) * synth.upsample \
             / synth.sample_rate
     wall = time.perf_counter() - t0
-    launches = {"fused_vocoder_tc": cuda_vocoder.LAUNCHES_TC,
-                "fused_vocoder_tc32": cuda_vocoder.LAUNCHES_TC32,
-                "probe": build.PROBE_LAUNCHES}
+    launches = counters.read()
     if min(launches.values()) < 1:
         raise RuntimeError(f"main path skipped a kernel: {launches}")
     emit({"phase": "main_path", "backend": synth.vocoder_backend,
@@ -506,7 +944,30 @@ def main() -> int:
                      "max_pcm_lsb_bar": max_bar}
     emit({"phase": "main_path_vs_mm", "frames_equal": True, **vs_mm})
 
-    # ---- 5. kernels line, then the result
+    # ---- 5. streaming, the batchers and the HTTP server; each path with
+    # the counters zeroed just before it and read just after
+    streaming = streaming_phase(synth.model, scale, synth.sample_rate, card,
+                                counters)
+    ss16 = streaming["streamers"]["bf16"]
+    if "--profile" in sys.argv[1:]:
+        for cd, ss in streaming["streamers"].items():
+            emit(profile_batch(lambda: list(ss.stream(EVAL_TEXTS[4], scale)),
+                               card, phase=f"stream_profile_{cd}"))
+    paths = {"main_path": launches, "streaming": streaming["launches"]}
+    paths["stream_batcher"] = stream_batcher_phase(
+        ss16, streaming["streams"]["bf16"], scale, card,
+        counters)["launches"]
+    paths["dynamic_batcher"] = dynamic_batcher_phase(
+        synth, scale, card, lsb_bar["bf16"], counters)["launches"]
+    paths["http"] = http_phase(synth, ss16, scale, card, lsb_bar["bf16"],
+                               buckets, counters)["launches"]
+
+    # ---- 6. kernels line, then the result
+    def launched(name):
+        return {"launches": sum(c[name] for c in paths.values()),
+                "paths": [p for p, c in paths.items() if c[name]],
+                "launches_by_path": {p: c[name] for p, c in paths.items()}}
+
     replaces = ("m2tts_tpu/ops/pallas/vocoder_packed.py:177 "
                 "(fused_vocoder_packed_forward) and "
                 "m2tts_tpu/ops/pallas/vocoder.py:148 (fused_vocoder_forward)")
@@ -515,14 +976,18 @@ def main() -> int:
         t = times[cd]
         entry = {"name": t["kernel"], "route": "cuda", "source": source,
                  "replaces": f"{replaces}, compute_dtype={cd}",
-                 "launches": launches[t["kernel"]], "max_abs_err": worst[cd],
+                 **launched(t["kernel"]), "max_abs_err": worst[cd],
                  "tol": tol, "compute_dtype": cd,
                  "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                  "module_ms": t["module_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": None,
                  "per_stage_floor_ms": t["per_stage_floor_ms"],
                  "stage_ms": [st["ms"] for st in t["stages"]],
-                 "shape": [B, T, c_mel]}
+                 "shape": [B, T, c_mel],
+                 "stream_chunk_ms": streaming[cd]["chunk_device_ms"],
+                 "stream_chunk_plain_ms": streaming[cd]["chunk_plain_ms"],
+                 "stream_chunk_bound_ms": streaming[cd]["chunk_bound_ms"],
+                 "stream_chunk_shape": streaming[cd]["chunk_shape"]}
         if "fma_bound_ms" in t:
             entry["fma_bound_ms"] = t["fma_bound_ms"]
         return entry
@@ -538,7 +1003,7 @@ def main() -> int:
          "source": "m2tts_tpu_torch/csrc/probe.cu",
          "replaces": "m2tts_tpu/serving/pipeline.py:335 "
                      "(Synthesizer._pallas_available)",
-         "launches": launches["probe"], "max_abs_err": probe_err,
+         **launched("probe"), "max_abs_err": probe_err,
          "tol": {"max_abs": 0.0},
          "ms": probe_t["probe"]["device_ms"],
          "plain_ms": probe_t["plain"]["device_ms"],

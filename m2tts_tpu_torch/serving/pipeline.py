@@ -19,7 +19,8 @@ from __future__ import annotations
 import copy
 import logging
 import re
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -27,7 +28,9 @@ import torch
 from m2tts_tpu_torch.frontend.text import TextProcessor
 from m2tts_tpu_torch.models.tts_model import M2TTS, build_model, init_params
 from m2tts_tpu_torch.ops.audio_codec import mulaw_decode_np, mulaw_encode_pcm16
-from m2tts_tpu_torch.ops.vocoder_mm import pack_vocoder_weights, vocoder_mm_forward
+from m2tts_tpu_torch.ops.vocoder_mm import (DTYPES, pack_vocoder_weights,
+                                            vocoder_mm_forward)
+from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import resolve_device
 
@@ -114,6 +117,66 @@ def split_text_to_budget(text: str, text_processor, budget: int) -> List[str]:
     return out or [text]
 
 
+def resolve_backend(vocoder_backend: str, compute_dtype: str,
+                    device: torch.device) -> Tuple[str, str]:
+    """(vocoder backend, compute dtype) with 'auto' resolved for ``device``:
+    'cuda' and bf16 on a CUDA device, 'torch' and f32 on the CPU. Raises
+    ``ValueError`` for an unknown name."""
+    on_cuda = device.type == "cuda"
+    if compute_dtype == "auto":
+        compute_dtype = "bf16" if on_cuda else "f32"
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"Unknown compute_dtype {compute_dtype!r}")
+    if vocoder_backend not in VOCODER_BACKENDS:
+        raise ValueError(f"Unknown vocoder_backend {vocoder_backend!r}")
+    if vocoder_backend == "auto":
+        vocoder_backend = "cuda" if on_cuda else "torch"
+    return vocoder_backend, compute_dtype
+
+
+def make_vocoder_fn(model: M2TTS, vocoder_backend: str, compute_dtype: str
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The packed-weight vocoder dispatch ``vf(mel) -> audio`` (f32 mel
+    [B, T, C] → f32 audio [B, T·U]) for the 'mm' and 'cuda' backends.
+
+    One definition for the batch (``Synthesizer``) and streaming
+    (``StreamingVocoder``) paths, so the two cannot drift in backend or
+    dtype. The weights of ``model.vocoder`` are packed for
+    ``compute_dtype`` at the first call and kept; a caller whose weights
+    change makes a new ``vf``. 'cuda' needs the model on a CUDA device and
+    builds and probes the kernels here (raising on failure); its ``vf``
+    launches ``vocoder_tc.cu`` (bf16) or ``vocoder_tc32.cu`` (f32).
+    """
+    if compute_dtype not in DTYPES:
+        raise ValueError(f"Unknown compute_dtype {compute_dtype!r}")
+    if vocoder_backend == "cuda":
+        device = next(model.parameters()).device
+        if device.type != "cuda":
+            raise ValueError("vocoder_backend='cuda' needs the model on a "
+                             f"CUDA device, got {device}")
+        from m2tts_tpu_torch.ops.cuda.build import kernels_available
+
+        kernels_available()  # builds and probes; raises on failure
+    elif vocoder_backend != "mm":
+        raise ValueError(f"Unknown vocoder_backend {vocoder_backend!r} "
+                         "for the packed-weight vocoder")
+    rates = model.upsample_rates
+    packed: Optional[Dict] = None
+
+    def vf(mel: torch.Tensor) -> torch.Tensor:
+        nonlocal packed
+        if packed is None:
+            packed = pack_vocoder_weights(model.vocoder, compute_dtype)
+        if vocoder_backend == "mm":
+            return vocoder_mm_forward(mel, packed, compute_dtype)
+        from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
+
+        return fused_vocoder_forward(mel.contiguous(), packed, rates,
+                                     compute_dtype)
+
+    return vf
+
+
 class Synthesizer:
     """Bucketed text→waveform engine over one model on one device."""
 
@@ -150,25 +213,8 @@ class Synthesizer:
         self.text_processor = TextProcessor(extra_lexicon=extra_lexicon)
         self.upsample = model.total_upsample
 
-        on_cuda = self.device.type == "cuda"
-        if compute_dtype == "auto":
-            compute_dtype = "bf16" if on_cuda else "f32"
-        if compute_dtype not in ("bf16", "f32"):
-            raise ValueError(f"Unknown compute_dtype {compute_dtype!r}")
-        self.compute_dtype = compute_dtype
-
-        if vocoder_backend not in VOCODER_BACKENDS:
-            raise ValueError(f"Unknown vocoder_backend {vocoder_backend!r}")
-        if vocoder_backend == "auto":
-            vocoder_backend = "cuda" if on_cuda else "torch"
-        if vocoder_backend == "cuda":
-            if not on_cuda:
-                raise ValueError("vocoder_backend='cuda' needs the model on a "
-                                 f"CUDA device, got {self.device}")
-            from m2tts_tpu_torch.ops.cuda.build import kernels_available
-
-            kernels_available()  # builds and probes; raises on failure
-        self.vocoder_backend = vocoder_backend
+        self.vocoder_backend, self.compute_dtype = resolve_backend(
+            vocoder_backend, compute_dtype, self.device)
         self.config: Optional[Config] = None
         self._drop_caches()
 
@@ -176,7 +222,9 @@ class Synthesizer:
         """Forget every derived copy of the weights (bf16 model, packed
         vocoder weights)."""
         self._bf16_model: Optional[M2TTS] = None
-        self._packed: Optional[Dict] = None
+        self._vocode = (None if self.vocoder_backend == "torch" else
+                        make_vocoder_fn(self.model, self.vocoder_backend,
+                                        self.compute_dtype))
 
     def _synth_model(self) -> M2TTS:
         if self.compute_dtype == "f32":
@@ -184,23 +232,6 @@ class Synthesizer:
         if self._bf16_model is None:
             self._bf16_model = copy.deepcopy(self.model).to(torch.bfloat16)
         return self._bf16_model
-
-    def _packed_weights(self) -> Dict:
-        if self._packed is None:
-            self._packed = pack_vocoder_weights(self.model.vocoder,
-                                                self.compute_dtype)
-        return self._packed
-
-    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
-        """Packed-weight vocoders: f32 mel [B, T, C] → f32 audio [B, T·U]."""
-        packed = self._packed_weights()
-        if self.vocoder_backend == "mm":
-            return vocoder_mm_forward(mel, packed, self.compute_dtype)
-        from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
-
-        return fused_vocoder_forward(mel.contiguous(), packed,
-                                     self.model.upsample_rates,
-                                     self.compute_dtype)
 
     # -- device work --------------------------------------------------------
     def _to_device(self, packed: np.ndarray):
@@ -362,6 +393,13 @@ class Synthesizer:
         self.model.load_state_dict(state_dict)
         self._drop_caches()
 
+    def synthesize_long(self, text: str, duration_scale: float = 1.0,
+                        gap_ms: float = 120.0) -> Dict[str, np.ndarray]:
+        """Text of any length → one waveform: split to the phoneme budget,
+        one bucketed batch over all chunks, joined with ``gap_ms`` of
+        silence."""
+        return self.synthesize_batch_long([text], duration_scale, gap_ms)[0]
+
     def synthesize_batch_long(self, texts: List[str],
                               duration_scale: float = 1.0,
                               gap_ms: float = 120.0
@@ -447,5 +485,22 @@ def from_config(config, seed: int = 0, vocoder_backend: str = "auto",
                         sample_rate=int(cfg.get("data.sample_rate", 22050)),
                         hop_length=int(cfg.get("data.hop_length", 256)),
                         vocoder_backend=vocoder_backend, device=dev, **kwargs)
+    synth.config = cfg
+    return synth
+
+
+def from_checkpoint(checkpoint_dir, step=None, vocoder_backend: str = "auto",
+                    device="cuda", **kwargs) -> Synthesizer:
+    """Synthesizer from a self-describing checkpoint directory written by
+    ``utils.checkpoint.CheckpointManager`` (``step``: an int, None for the
+    latest, or "best")."""
+    state_dict, cfg, _ = load_for_inference(checkpoint_dir, step)
+    model = build_model(cfg.get("model", Config()))
+    model.load_state_dict(state_dict)
+    synth = Synthesizer(model,
+                        sample_rate=int(cfg.get("data.sample_rate", 22050)),
+                        hop_length=int(cfg.get("data.hop_length", 256)),
+                        vocoder_backend=vocoder_backend, device=device,
+                        **kwargs)
     synth.config = cfg
     return synth

@@ -3,8 +3,9 @@ kernels (tensor cores in bf16, 3×TF32 tensor cores in f32) against their
 plain versions, whole and stage by stage, at widths 64 to 512 (192 and 512
 run the residual convs as several column groups a block), the kernel
 probe, and the ``auto`` Synthesizer through the kernels against the ``mm``
-backend. They skip without a
-card. This file imports no JAX, so on the card it runs without the test
+backend, and the streaming path on the kernels (streamed against the kernel
+run whole, the short path on the f32 kernel, the ``StreamBatcher`` against
+solo streams). They skip without a card. This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -13,6 +14,8 @@ Tolerances: f32 atol 3e-5 / rtol 1e-4; bf16 kernel against the bf16 plain
 version (same rounding points, other summation order) max abs 2e-2; PCM
 within ±1 LSB in f32, within the bf16 bar scaled to LSB in bf16.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -23,6 +26,9 @@ from m2tts_tpu_torch.ops import vocoder_mm as tmm
 from m2tts_tpu_torch.ops.cuda import build
 from m2tts_tpu_torch.ops.cuda import vocoder as cuda_vocoder
 from m2tts_tpu_torch.serving.pipeline import Synthesizer
+from m2tts_tpu_torch.serving.stream_batcher import StreamBatcher
+from m2tts_tpu_torch.serving.streaming import (StreamingSynthesizer,
+                                               StreamingVocoder)
 
 torch.set_num_threads(2)
 
@@ -131,3 +137,88 @@ def test_auto_synthesizer_runs_the_kernel(cd):
         assert a["frames"] == b["frames"]
         assert np.abs(a["audio_pcm"].astype(np.int32)
                       - b["audio_pcm"]).max(initial=0) <= lsb
+
+
+def _tiny_model(rates=(8, 8, 2, 2)):
+    return init_params(M2TTS(hidden_dim=32, mel_channels=16,
+                             vocoder_channels=32, text_encoder_layers=1,
+                             decoder_layers=1, upsample_rates=rates),
+                       torch.Generator().manual_seed(0), "cuda")
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_streaming_on_the_kernel_equals_whole(cd):
+    model = _tiny_model()
+    sv = StreamingVocoder(model, chunk_frames=32, compute_dtype=cd)
+    assert sv.vocoder_backend == "cuda"
+    mel = torch.randn((100, 16), generator=torch.Generator().manual_seed(3))
+    mel = mel.cuda()
+    before = _counts()
+    chunks = list(sv.stream(mel))
+    after = _counts()
+    assert after[cd] > before[cd]
+    assert [len(c) for c in chunks] == [n * 256 for n in (32, 32, 32, 4)]
+    packed = tmm.pack_vocoder_weights(model.vocoder, cd)
+    whole = cuda_vocoder.fused_vocoder_forward(mel[None], packed,
+                                               (8, 8, 2, 2), cd)[0].cpu()
+    streamed = torch.from_numpy(np.concatenate(chunks))
+    _held(streamed, whole, cd)
+    plain = StreamingVocoder(model, chunk_frames=32, compute_dtype=cd,
+                             vocoder_backend="mm").synthesize(mel)
+    _held(streamed, torch.from_numpy(plain), cd)
+    padded = torch.cat([mel, torch.zeros_like(mel[:28])])[None]
+    dev = np.concatenate(list(sv.stream_device(padded, 100)))
+    np.testing.assert_array_equal(dev, streamed.numpy())
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_short_path_launches_the_f32_kernel(cd):
+    model = _tiny_model()
+    sv = StreamingVocoder(model, chunk_frames=32, compute_dtype=cd)
+    mel = torch.randn((30, 16), generator=torch.Generator().manual_seed(4))
+    mel = mel.cuda()
+    before = _counts()
+    out = sv.synthesize(mel)
+    after = _counts()
+    assert after["f32"] == before["f32"] + 4
+    assert after["bf16"] == before["bf16"]
+    ref = tmm.vocoder_mm_forward(
+        mel[None], tmm.pack_vocoder_weights(model.vocoder, "f32"), "f32")
+    torch.testing.assert_close(torch.from_numpy(out), ref[0].cpu(), **F32)
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_stream_batcher_on_cuda_equals_solo(cd):
+    ss = StreamingSynthesizer(_tiny_model(), chunk_frames=16, max_frames=128,
+                              text_bucket=32, compute_dtype=cd)
+    texts = ["hello world", "streaming in batches", "the quick brown fox",
+             "a"]
+    solo = [np.concatenate(list(ss.stream(t, 12.0))) for t in texts]
+    sb = StreamBatcher(ss, max_streams=4, max_wait_ms=200)
+    got, errors = [None] * len(texts), []
+
+    def run(i):
+        try:
+            got[i] = np.concatenate(list(sb.stream(texts[i], 12.0,
+                                                   timeout=120)))
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(texts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sb.close()
+    assert not errors, errors
+    assert 0 < sb.chunk_dispatches < sb.chunks_emitted
+    for g, s in zip(got, solo):
+        assert g.shape == s.shape
+        _held(torch.from_numpy(g), torch.from_numpy(s), cd)

@@ -59,6 +59,9 @@ def test_no_jax_or_reference_package_imported():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "m2tts_tpu_torch.serving.pipeline" in report["imported"]
     assert "m2tts_tpu_torch.ops.cuda.vocoder" in report["imported"]
+    for name in ("serving.server", "serving.streaming", "serving.batcher",
+                 "serving.stream_batcher", "utils.checkpoint"):
+        assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
     assert not bad, bad

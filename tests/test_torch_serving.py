@@ -138,6 +138,21 @@ def test_split_text_and_long_form_match(pair):
         _assert_pcm_close(r["audio_pcm"], o["audio_pcm"])
 
 
+@pytest.mark.parametrize("text", [
+    "Hello world. " * 3 + "This is a much longer sentence, with a comma, "
+    "that needs splitting into pieces to fit the budget. The end!",
+    "hello world"], ids=["over-budget", "in-budget"])
+def test_synthesize_long_matches_jax(pair, text):
+    js, ts = pair
+    ref = js.synthesize_long(text, SCALE)
+    out = ts.synthesize_long(text, SCALE)
+    assert out["chunks"] == ref["chunks"] == ts.split_text(text)
+    assert (len(out["chunks"]) > 1) == (text != "hello world")
+    assert out["frames"] == ref["frames"]
+    assert out.get("truncated") == ref.get("truncated")
+    _assert_pcm_close(ref["audio_pcm"], out["audio_pcm"])
+
+
 def test_stream_matches_batch(pair):
     _, ts = pair
     batches = [["hello"], ["hello world"], ["the world"]]
