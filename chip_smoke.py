@@ -30,6 +30,23 @@ just before it and read just after:
   batchers), each payload against the direct call, ``/reload`` from a
   checkpoint written by ``CheckpointManager``.
 
+Then stage-1 training at the flagship's full width and depth
+(``Stage1Trainer`` on ``FLAGSHIP_MODEL`` + ``FLAGSHIP_TRAINING``: batch 32,
+bf16, bf16 transfers, data-free ``DummyDataset`` over the three buckets;
+only the loop's lengths and the schedule are overridden, ``TRAIN_OVERRIDES``):
+
+- ``train``: 30 steps through the ``DevicePrefetcher`` and 30 with the
+  device data cache, each validating, pinning ``best/`` and writing a
+  checkpoint; steps/s, ms per step by bucket, peak memory, losses (fails
+  on a non-finite loss or a validation loss that did not fall);
+  ``train_xl``: 5 steps at ``configs/flagship_xl.yaml``'s widths;
+- ``train_vs_cpu``: two f32 steps on the card against the same steps on
+  the CPU (same weights and batch, dropout 0, TF32 off), held to the bars
+  in ``TRAIN_VS_CPU``;
+- ``train_to_serve``: ``from_checkpoint`` of the run's latest and ``best``
+  checkpoints (``auto``, so ``vocoder_tc.cu``) on the eight texts, PCM
+  equal at 0 LSB to a Synthesizer on the trainer's in-memory weights.
+
 One JSON line per phase; the line before the last lists the kernels (with
 the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
@@ -39,8 +56,9 @@ code is nonzero. Needs one CUDA device, ``nvcc`` and no network or PyYAML.
 
 adds a ``main_path_profile`` line: device time by kernel name for one
 batch-64 ``synthesize_batch`` (torch.profiler) and the device's busy share,
-and a ``stream_profile_f32`` and ``stream_profile_bf16`` line: the same for
-one stream of the longest text.
+a ``stream_profile_f32`` and ``stream_profile_bf16`` line: the same for
+one stream of the longest text, and a ``train_profile`` line: the same for
+5 flagship train steps at the (128, 512) bucket.
 """
 
 from __future__ import annotations
@@ -85,6 +103,21 @@ BF16_VS_F32 = {"max_abs": 0.15, "mean_abs": 2e-2}
 # The f32 kernel runs each f32 product as three TF32 products (495 TFLOP/s),
 # so its operations peak is a third of that; the f32 FMA pipe's 67 TFLOP/s
 # is the bound of a kernel without tensor cores.
+# stage-1 training: the only changes to the flagship's training config
+TRAIN_OVERRIDES = {"training.max_steps": 30, "training.log_every": 10,
+                   "training.validate_every": 15,
+                   "training.save_every": 1000,
+                   "training.warmup_steps": 10,
+                   "training.learning_rate": 1e-3}
+XL_STEPS = 5
+# f32 train steps on the card against the CPU (TF32 off on the card):
+# relative error of each loss and of grad_norm, relative L2 error of each
+# gradient tensor, max abs error of the params. Adam's first update moves a
+# weight by lr·g/(|g| + 1e-8): where |g| is within a few eps of zero, a
+# gradient error of 1e-10 moves it by a few % of lr, so the params are
+# held to a tenth of lr (1e-3)
+TRAIN_VS_CPU = {"loss_rel": 1e-5, "grad_norm_rel": 1e-5, "grad_rel_l2": 1e-5,
+                "params_abs": 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12}
 FMA_FLOPS = 67e12
@@ -226,10 +259,16 @@ def profile_batch(run, card: str, top: int = 12,
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # device kernels and copies; a record_function range (an "annotation",
+    # such as the optimizer's step) spans them and would count them twice
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+                      for e in events if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda k: -k[1])
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -237,7 +276,33 @@ def profile_batch(run, card: str, top: int = 12,
             "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
             "device_ops": sum(k[2] for k in kernels),
             "top": [{"name": n[:80], "us": t, "calls": c}
-                    for n, t, c in kernels[:top]]}
+                    for n, t, c in kernels[:top]],
+            "host_top": [{"name": n[:80], "self_us": t, "calls": c}
+                         for n, t, c in host[:top]]}
+
+
+def packed_eval_texts(synth):
+    """(ids, lengths) of the eight texts in ``synth``'s buckets."""
+    from m2tts_tpu_torch.serving.pipeline import encode_packed_batch
+
+    packed = encode_packed_batch(synth.text_processor, EVAL_TEXTS,
+                                 synth.batch_buckets, synth.text_buckets)
+    return packed[:, :-1], packed[:, -1]
+
+
+def calibrate_scale(synth, ids, lengths) -> float:
+    """The duration scale that puts the longest text at ~FRAME_TARGET
+    frames by ``synth``'s duration probe."""
+    scale = 1.0
+    for _ in range(8):  # frames are nonlinear in the scale: iterate
+        peak = float(synth.predict_frames(ids, lengths, scale).max())
+        if peak <= 0:
+            scale *= 64.0
+            continue
+        if abs(peak - FRAME_TARGET) / FRAME_TARGET < 0.03:
+            break
+        scale *= FRAME_TARGET / peak
+    return scale
 
 
 class Counters:
@@ -660,6 +725,307 @@ def http_phase(synth, streamer, scale: float, card: str, lsb_bar,
     return out
 
 
+def train_config(model: dict, training: dict, out_dir: str, **extra):
+    """The flagship-style config with ``TRAIN_OVERRIDES`` (and ``extra``)
+    applied and every output under ``out_dir``."""
+    from m2tts_tpu_torch.utils.config import Config
+
+    cfg = Config({"model": model, **training})
+    for key, value in {**TRAIN_OVERRIDES, **extra}.items():
+        cfg.set(key, value)
+    cfg.set("paths.output_dir", out_dir)
+    cfg.set("paths.checkpoint_dir", f"{out_dir}/checkpoints")
+    cfg.set("paths.log_dir", f"{out_dir}/logs")
+    return cfg
+
+
+def bucket_batches(trainer) -> dict:
+    """One device batch of each bucket shape (leftover groups padded by
+    cycling, as ``make_batches`` pads them with ``drop_last=False``)."""
+    from m2tts_tpu_torch.data.dataset import make_batches
+
+    out = {}
+    for b in make_batches(trainer.dataset, trainer.batch_size,
+                          trainer.buckets, seed=0, shuffle=False,
+                          drop_last=False):
+        key = (b["phoneme_ids"].shape[1], b["mel"].shape[1])
+        out.setdefault(key, trainer._put(b))
+    return out
+
+
+def step_ms(trainer, batch, iters: int = 8, warmup: int = 2) -> float:
+    """Host wall ms per train step, ``iters`` steps between two
+    synchronisations (no host read inside, as in the training loop)."""
+    for _ in range(warmup):
+        trainer._train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer._train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _read_metrics(log_dir: str):
+    import csv
+
+    with open(os.path.join(log_dir, "metrics.csv"), newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def train_run(cfg, card: str) -> dict:
+    """One training run of ``cfg`` on the card: validation before and
+    after, the run's wall time and peak memory, the logged losses; the
+    trainer, its final weights and the weights it pinned as best."""
+    from m2tts_tpu_torch.data.dataset import DummyDataset
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+
+    trainer = Stage1Trainer(cfg, device="cuda")
+    if not isinstance(trainer.dataset, DummyDataset):
+        raise RuntimeError(f"expected the data-free DummyDataset, got "
+                           f"{type(trainer.dataset).__name__}")
+    best = {}
+    pin = trainer.save_best_checkpoint
+
+    def save_best(score):  # keep the pinned weights for train_to_serve
+        best.update(step=trainer.step, score=score, state={
+            k: v.detach().clone() for k, v in trainer.model.state_dict().items()})
+        pin(score)
+
+    trainer.save_best_checkpoint = save_best
+    val_before = trainer.validate()["total_loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    final = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    val_after = trainer.validate()["total_loss"]
+    rows = _read_metrics(cfg.get("paths.log_dir"))
+    losses = [float(r["total_loss"]) for r in rows if r.get("total_loss")]
+    vals = [float(r["val_total_loss"]) for r in rows
+            if r.get("val_total_loss")]
+    if not losses or not all(map(math.isfinite,
+                                 losses + vals + [val_before, val_after])):
+        raise RuntimeError(f"non-finite or missing losses: {losses} {vals} "
+                           f"{val_before} {val_after}")
+    if not val_after < val_before:
+        raise RuntimeError(f"validation loss did not fall: {val_before} -> "
+                           f"{val_after}")
+    steps = int(cfg.get("training.max_steps"))
+    if trainer.step != steps or trainer.ckpt.latest_step() != steps:
+        raise RuntimeError(f"run ended at step {trainer.step}, checkpoint "
+                           f"{trainer.ckpt.latest_step()}")
+    return {"trainer": trainer, "final": final, "best": best, "report": {
+        "steps": steps, "wall_s": wall, "steps_per_s": steps / wall,
+        "logged_steps_per_s": [float(r["steps_per_sec"]) for r in rows
+                               if r.get("steps_per_sec")],
+        "max_memory_allocated_gb": peak / 1e9,
+        "total_loss_logged": {int(r["step"]): float(r["total_loss"])
+                              for r in rows if r.get("total_loss")},
+        "val_total_loss_before": val_before,
+        "val_total_loss_after": val_after,
+        "val_total_loss_in_run": vals,
+        "best_step": best.get("step"),
+        "checkpoints": trainer.ckpt.all_steps(),
+        "sample_wavs": len(os.listdir(os.path.join(
+            cfg.get("paths.output_dir"), "samples")))}}
+
+
+def train_phase(out_dir: str, card: str, profile: bool = False) -> dict:
+    """30 flagship steps through the DevicePrefetcher and 30 with the
+    device data cache; ms per step by bucket; with ``profile`` the device
+    time of 5 steps at the (128, 512) bucket; then 5 steps at the XL
+    widths."""
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING,
+                                              FLAGSHIP_XL_MODEL,
+                                              FLAGSHIP_XL_TRAINING)
+
+    t0 = time.perf_counter()
+    runs, reports = {}, {}
+    for name, cache in (("prefetcher", False), ("device_cache", True)):
+        cfg = train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                           f"{out_dir}/{name}",
+                           **{"training.device_data_cache": cache})
+        runs[name] = train_run(cfg, card)
+        reports[name] = runs[name]["report"]
+    trainer = runs["prefetcher"]["trainer"]
+    batches = bucket_batches(trainer)
+    reports["ms_per_step_by_bucket"] = {
+        f"{t},{m}": step_ms(trainer, b) for (t, m), b in batches.items()}
+    tcfg = trainer.config.get("training")
+    out = {"phase": "train", "card": card, "overrides": TRAIN_OVERRIDES,
+           "batch_size": trainer.batch_size, "bf16": trainer.bf16,
+           "transfer_dtype": str(trainer.transfer_dtype),
+           "buckets": trainer.buckets, "dataset_size": len(trainer.dataset),
+           "learning_rate": tcfg.get("learning_rate"), **reports,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if profile:  # before the XL run, which empties the allocator's cache
+        b512 = batches[tuple(trainer.buckets[1])]
+        emit(profile_batch(lambda: [trainer._train_step(b512)
+                                    for _ in range(5)],
+                           card, phase="train_profile"))
+
+    # the XL stage-1 widths (its config stages the data on the device)
+    cfg = train_config(FLAGSHIP_XL_MODEL, FLAGSHIP_XL_TRAINING,
+                       f"{out_dir}/xl", **{"training.max_steps": XL_STEPS,
+                                           "training.log_every": XL_STEPS,
+                                           "training.validate_every": 1000})
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+
+    t_xl = time.perf_counter()
+    xl = Stage1Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = xl.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if xl.step != XL_STEPS or not math.isfinite(last.get("total_loss",
+                                                         math.nan)):
+        raise RuntimeError(f"XL run: step {xl.step}, losses {last}")
+    emit({"phase": "train_xl", "card": card, "steps": XL_STEPS,
+          "params": sum(p.numel() for p in xl.model.parameters()),
+          "device_data_cache": xl.device_data_cache,
+          "wall_s": wall, "steps_per_s": XL_STEPS / wall,
+          "logged_steps_per_s": last["steps_per_sec"],
+          "total_loss": last["total_loss"],
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_xl})
+    xl.close()
+    del xl
+    torch.cuda.empty_cache()
+    out["runs"], out["batches"] = runs, batches
+    return out
+
+
+def train_vs_cpu_phase(out_dir: str, card: str) -> dict:
+    """Two f32 steps of the flagship at the (128, 512) bucket, batch 8,
+    dropout 0, constant lr, on the card and on the CPU from the same
+    weights and batch, TF32 off on the card."""
+    from m2tts_tpu_torch.data.dataset import make_batches
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING)
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = {"model.text_encoder.dropout": 0.0, "training.bf16": False,
+             "training.transfer_dtype": None, "training.batch_size": 8,
+             "training.lr_scheduler": "constant",
+             "training.warmup_steps": 0}
+    tr = {dev: Stage1Trainer(train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                                          f"{out_dir}/vs_cpu_{dev}", **extra),
+                             device=dev) for dev in ("cpu", "cuda")}
+    tr["cuda"].model.load_state_dict(tr["cpu"].model.state_dict())
+    frames = tr["cpu"].buckets[1][1]  # the (128, 512) bucket
+    batch = next(b for b in make_batches(tr["cpu"].dataset, 8,
+                                         tr["cpu"].buckets, seed=0)
+                 if b["mel"].shape[1] == frames)
+    steps = []
+    for _ in range(2):
+        (lc, gc), (lg, gg) = (tr[d]._forward_backward(tr[d]._put(batch))
+                              for d in ("cpu", "cuda"))
+        loss_rel = {k: abs(lg[k].item() - lc[k].item())
+                    / max(abs(lc[k].item()), 1e-30) for k in lc}
+        grad_rel, grad_abs = {}, 0.0
+        for name, a, b in zip(tr["cpu"].param_names, gc, gg):
+            d = (b.cpu() - a).norm().item()
+            grad_abs = max(grad_abs, (b.cpu() - a).abs().max().item())
+            grad_rel[name] = d / a.norm().item() if a.norm() > 0 else d
+        tr["cpu"].optimizer.update(gc)
+        tr["cuda"].optimizer.update(gg)
+        params_abs = max((tr["cuda"].model.state_dict()[k].cpu() - v)
+                         .abs().max().item()
+                         for k, v in tr["cpu"].model.state_dict().items())
+        worst = max(grad_rel, key=grad_rel.get)
+        steps.append({
+            "loss_rel": {k: v for k, v in loss_rel.items() if k != "grad_norm"},
+            "grad_norm_rel": loss_rel["grad_norm"],
+            "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
+            "grad_max_abs": grad_abs, "params_max_abs": params_abs,
+            "total_loss": lc["total_loss"].item()})
+    for st in steps:
+        if (max(st["loss_rel"].values()) > TRAIN_VS_CPU["loss_rel"]
+                or st["grad_norm_rel"] > TRAIN_VS_CPU["grad_norm_rel"]
+                or st["grad_rel_l2_max"] > TRAIN_VS_CPU["grad_rel_l2"]
+                or st["params_max_abs"] > TRAIN_VS_CPU["params_abs"]):
+            raise RuntimeError(f"train step on the card vs the CPU: {st}")
+    out = {"phase": "train_vs_cpu", "card": card, "bars": TRAIN_VS_CPU,
+           "shape": list(batch["mel"].shape), "tf32": False,
+           "steps": steps, "seconds": time.perf_counter() - t0}
+    emit(out)
+    for t in tr.values():
+        t.close()
+    return out
+
+
+def train_to_serve_phase(train: dict, buckets: dict, card: str,
+                         counters: Counters) -> dict:
+    """The prefetcher run's latest and best checkpoints served by
+    ``from_checkpoint`` (``auto``: bf16 on ``vocoder_tc.cu``) on the eight
+    texts, against Synthesizers on the trainer's in-memory weights."""
+    from m2tts_tpu_torch.models.tts_model import build_model
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+
+    t0 = time.perf_counter()
+    run = train["runs"]["prefetcher"]
+    ckdir = run["trainer"].ckpt.directory
+
+    def in_memory(state):
+        model = build_model(FLAGSHIP_MODEL)
+        model.load_state_dict(state)
+        return pipeline.Synthesizer(model, vocoder_backend="auto",
+                                    device="cuda", **buckets)
+
+    served = {"latest": pipeline.from_checkpoint(ckdir, device="cuda",
+                                                 vocoder_backend="auto",
+                                                 **buckets),
+              "best": pipeline.from_checkpoint(ckdir, step="best",
+                                               device="cuda",
+                                               vocoder_backend="auto",
+                                               **buckets)}
+    refs = {"latest": in_memory(run["final"]),
+            "best": in_memory(run["best"]["state"])}
+    for s in served.values():
+        if (s.vocoder_backend, s.compute_dtype) != ("cuda", "bf16"):
+            raise RuntimeError(f"auto resolved to {s.vocoder_backend}/"
+                               f"{s.compute_dtype}")
+    ids, lengths = packed_eval_texts(served["latest"])
+    scale = calibrate_scale(served["latest"], ids, lengths)
+    counters.zero()
+    got = {k: s.synthesize_batch(EVAL_TEXTS, duration_scale=scale)
+           for k, s in served.items()}
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"train_to_serve skipped the kernel: {launches}")
+    out = {"phase": "train_to_serve", "card": card, "launches": launches,
+           "duration_scale": scale, "checkpoint_steps": {}}
+    for k in served:
+        ref = refs[k].synthesize_batch(EVAL_TEXTS, duration_scale=scale)
+        for i, (a, b) in enumerate(zip(got[k], ref)):
+            if a["frames"] != b["frames"] or a["frames"] <= 0 \
+                    or a.get("truncated") or not np.any(a["audio_pcm"]):
+                raise RuntimeError(f"{k} text {i}: frames {a['frames']} vs "
+                                   f"{b['frames']}, truncated "
+                                   f"{a.get('truncated')}")
+            pcm_diff(a["audio_pcm"], b["audio_pcm"], (0, None),
+                     f"{k} checkpoint vs in-memory weights, text {i}")
+        out[k] = {"frames": [r["frames"] for r in got[k]],
+                  "max_pcm_lsb": 0}
+    out["checkpoint_steps"] = {"latest": served["latest"].config.get(
+        "training.max_steps"), "best": run["best"]["step"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -868,19 +1234,8 @@ def main() -> int:
     synth_f32 = pipeline.Synthesizer(synth.model, compute_dtype="f32",
                                      vocoder_backend="auto", device="cuda",
                                      **buckets)
-    packed_ids = pipeline.encode_packed_batch(
-        synth.text_processor, EVAL_TEXTS, synth.batch_buckets,
-        synth.text_buckets)
-    ids, lengths = packed_ids[:, :-1], packed_ids[:, -1]
-    scale = 1.0
-    for _ in range(8):  # frames are nonlinear in the scale: iterate
-        peak = float(synth.predict_frames(ids, lengths, scale).max())
-        if peak <= 0:
-            scale *= 64.0
-            continue
-        if abs(peak - FRAME_TARGET) / FRAME_TARGET < 0.03:
-            break
-        scale *= FRAME_TARGET / peak
+    ids, lengths = packed_eval_texts(synth)
+    scale = calibrate_scale(synth, ids, lengths)
     results = {}
     for name, s in (("bf16", synth), ("f32", synth_f32)):
         res = s.synthesize_batch(EVAL_TEXTS, duration_scale=scale)
@@ -962,7 +1317,20 @@ def main() -> int:
     paths["http"] = http_phase(synth, ss16, scale, card, lsb_bar["bf16"],
                                buckets, counters)["launches"]
 
-    # ---- 6. kernels line, then the result
+    # ---- 6. stage-1 training at the flagship's width and depth, then its
+    # checkpoints served through the kernel
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tdir:
+        train = train_phase(tdir, card, "--profile" in sys.argv[1:])
+        train_vs_cpu_phase(tdir, card)
+        paths["train_to_serve"] = train_to_serve_phase(
+            train, buckets, card, counters)["launches"]
+        for run in train["runs"].values():
+            run["trainer"].close()
+        del train
+
+    # ---- 7. kernels line, then the result
     def launched(name):
         return {"launches": sum(c[name] for c in paths.values()),
                 "paths": [p for p, c in paths.items() if c[name]],

@@ -6,7 +6,9 @@ parameter names follow the flax param paths (``attn.qkv``, ``conv1d.conv``,
 ``norm1`` ...) so ``utils/params.py`` converts weights by name alone.
 Convolutions transpose to torch's ``[B, C, T]`` internally.
 
-Every LayerNorm uses eps 1e-6, flax's default (torch's is 1e-5).
+Every LayerNorm uses eps 1e-6, flax's default (torch's is 1e-5). Dropout
+draws its mask from a generator the caller sets (``Dropout.generator``), so
+a trainer can make the noise of a step a function of the step.
 """
 
 from __future__ import annotations
@@ -44,6 +46,26 @@ def padding_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
             < lengths[:, None])
 
 
+class Dropout(nn.Module):
+    """Inverted dropout as flax computes it: keep each element with
+    probability 1 - p and divide the kept ones by 1 - p, in the input's
+    dtype. The mask comes from ``self.generator`` (a ``torch.Generator`` on
+    the input's device; the device's default generator when None). The
+    identity in ``eval()`` and at p = 0."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Fused-QKV self-attention (no QKV bias, features laid out
     ``(3, heads, head_dim)``). Scores at padded keys are REPLACED by -1e9,
@@ -56,7 +78,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.hidden_dim = hidden_dim
         self.num_heads = num_heads
         self.qkv = nn.Linear(hidden_dim, 3 * hidden_dim, bias=False)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.out = nn.Linear(hidden_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor,
@@ -80,7 +102,7 @@ class FeedForward(nn.Module):
     def __init__(self, hidden_dim: int, ffn_dim: int, dropout_rate: float = 0.1):
         super().__init__()
         self.fc1 = nn.Linear(hidden_dim, ffn_dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.fc2 = nn.Linear(ffn_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,7 +119,7 @@ class TransformerEncoderLayer(nn.Module):
         self.attn = MultiHeadSelfAttention(hidden_dim, num_heads, dropout_rate)
         self.norm2 = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.ffn = FeedForward(hidden_dim, ffn_dim, dropout_rate)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -157,7 +179,7 @@ class ConvBlock(nn.Module):
             self.bn_bias = nn.Parameter(torch.zeros(features))
         elif norm != "none":
             raise ValueError(f"Unknown norm {norm!r}")
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1d(x)

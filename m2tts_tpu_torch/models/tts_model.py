@@ -20,6 +20,7 @@ from m2tts_tpu_torch.models.components import (
     Conv1d,
     ConvBlock,
     ConvTranspose1d,
+    Dropout,
     LightweightResBlock,
     TransformerEncoderLayer,
     VariancePredictor,
@@ -42,7 +43,7 @@ class TextEncoder(nn.Module):
         self.max_seq_len = max_seq_len
         self.num_layers = num_layers
         self.embedding = nn.Embedding(vocab_size, hidden_dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
                 hidden_dim, num_heads, hidden_dim * 2, dropout_rate))

@@ -504,3 +504,30 @@ def from_checkpoint(checkpoint_dir, step=None, vocoder_backend: str = "auto",
                         **kwargs)
     synth.config = cfg
     return synth
+
+
+def from_torch_checkpoint(path, vocoder_backend: str = "auto",
+                          device="cuda", **kwargs) -> Synthesizer:
+    """Synthesizer from a reference PyTorch checkpoint (the original
+    m2-tts layout; ``utils/torch_compat.py``). Converted models always use
+    the BatchNorm-compat duration predictor (running stats folded to an
+    affine). The file embeds its config object, so it is read with
+    ``weights_only=False``: load only files you trust."""
+    from m2tts_tpu_torch.utils.params import from_flax
+    from m2tts_tpu_torch.utils.torch_compat import \
+        convert_reference_checkpoint
+
+    dev = resolve_device(device)
+    params, cfg = convert_reference_checkpoint(path)
+    cfg = Config(cfg if isinstance(cfg, dict) else {})
+    model_cfg = cfg.get("model", Config())
+    model_cfg.set("duration_predictor.norm", "batch")
+    model = build_model(model_cfg)
+    model.load_state_dict(from_flax(params))
+    synth = Synthesizer(model,
+                        sample_rate=int(cfg.get("data.sample_rate", 22050)),
+                        hop_length=int(cfg.get("data.hop_length", 256)),
+                        vocoder_backend=vocoder_backend, device=dev,
+                        **kwargs)
+    synth.config = cfg
+    return synth

@@ -390,11 +390,14 @@ def build_synthesizer(args):
               "vocoder_backend": args.vocoder_backend, "device": args.device}
     if args.checkpoint:
         return pipeline.from_checkpoint(args.checkpoint, **kwargs)
+    if args.torch_checkpoint:
+        return pipeline.from_torch_checkpoint(args.torch_checkpoint, **kwargs)
     if args.random_init:
         config = (load_config(args.config) if args.config
                   else {"model": FLAGSHIP_MODEL})
         return pipeline.from_config(config, **kwargs)
-    raise SystemExit("one of --checkpoint / --random-init is required")
+    raise SystemExit("one of --checkpoint / --torch-checkpoint / "
+                     "--random-init is required")
 
 
 def device_info(synth) -> dict:
@@ -412,6 +415,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="m2tts HTTP synthesis server (PyTorch/CUDA port)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="checkpoint dir written by CheckpointManager")
+    p.add_argument("--torch-checkpoint", type=str, default=None,
+                   help="reference PyTorch checkpoint (.pt) of the original "
+                        "m2-tts layout")
     p.add_argument("--random-init", action="store_true",
                    help="untrained model with seeded random weights")
     p.add_argument("--config", type=str, default=None,

@@ -3,7 +3,7 @@
 A copy of ``m2tts_tpu/utils/config.py`` for the PyTorch port. PyYAML is
 imported only where YAML is read or written, so the port (and
 ``chip_smoke.py``, which uses ``FLAGSHIP_MODEL``) runs where PyYAML is not
-installed.
+installed; without it, ``apply_overrides`` parses values as JSON scalars.
 """
 
 from __future__ import annotations
@@ -26,6 +26,70 @@ FLAGSHIP_MODEL: Dict[str, Any] = {
                 "upsample_rates": [8, 8, 2, 2]},
     "remat": False,
 }
+
+
+# The ``training:`` and ``data:`` sections of configs/flagship_tpu.yaml, so
+# the training CLI trains the flagship without a YAML parser
+# (tests/test_torch_params.py holds them equal to the file).
+FLAGSHIP_TRAINING: Dict[str, Any] = {
+    "training": {
+        "batch_size": 32, "max_steps": 50000, "learning_rate": 8.0e-5,
+        "warmup_steps": 2000, "lr_scheduler": "cosine",
+        "gradient_clip_norm": 1.0, "bf16": True,
+        "transfer_dtype": "bfloat16", "adam_b1": 0.8, "adam_b2": 0.99,
+        "audio_segment_len": 8192, "adversarial_warmup_steps": 1000,
+        "gate_stoi_weight": 4.0, "quality_utterances": 16,
+        "adversarial_loss_weight": 0.25, "feature_matching_weight": 2.0,
+        "envelope_loss_weight": 0.0, "stft_phase_weight": 0.1,
+        "save_every": 2000, "validate_every": 1000, "log_every": 100,
+        "seed": 1234, "device_data_cache": False,
+    },
+    "data": {
+        "dataset_name": "ljspeech", "data_dir": "data/ljspeech",
+        "sample_rate": 22050, "n_fft": 1024, "hop_length": 256,
+        "win_length": 1024, "n_mels": 80, "fmin": 0, "fmax": 11025,
+        "max_text_length": 256, "max_mel_length": 1000,
+        "buckets": [[64, 256], [128, 512], [256, 1000]],
+    },
+}
+
+# The ``model:``, ``training:`` and ``data:`` sections of
+# configs/flagship_xl.yaml (384-d 6+6 layers, 512-channel vocoder).
+FLAGSHIP_XL_MODEL: Dict[str, Any] = {
+    "text_encoder": {"vocab_size": 256, "hidden_dim": 384, "num_layers": 6,
+                     "num_heads": 6, "dropout": 0.1, "max_seq_len": 1000},
+    "duration_predictor": {"hidden_dim": 384, "kernel_size": 3,
+                           "dropout": 0.1, "norm": "layer"},
+    "decoder": {"hidden_dim": 384, "mel_channels": 80, "num_layers": 6},
+    "vocoder": {"mel_channels": 80, "hidden_channels": 512, "kernel_size": 3,
+                "upsample_rates": [8, 8, 2, 2]},
+    "remat": False,
+}
+FLAGSHIP_XL_TRAINING: Dict[str, Any] = {
+    "training": {
+        "batch_size": 32, "max_steps": 200000, "learning_rate": 5.0e-5,
+        "warmup_steps": 4000, "lr_scheduler": "cosine",
+        "gradient_clip_norm": 1.0, "bf16": True,
+        "transfer_dtype": "bfloat16", "device_data_cache": True,
+        "adam_b1": 0.8, "adam_b2": 0.99, "audio_segment_len": 8192,
+        "save_every": 2000, "validate_every": 1000, "log_every": 100,
+        "seed": 1234,
+    },
+    "data": FLAGSHIP_TRAINING["data"],
+}
+
+
+def _parse_value(raw: str) -> Any:
+    """An override's value: YAML when PyYAML is installed, else a JSON
+    scalar or list (``true``, ``3``, ``[1, 2]``), else the string."""
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(raw)
+        except ValueError:
+            return raw
+    return yaml.safe_load(raw)
 
 
 class Config:
@@ -148,7 +212,8 @@ class Config:
         return Config(_merge(base, over))
 
     def apply_overrides(self, overrides: List[str]) -> "Config":
-        """Apply `key.path=value` CLI overrides (values YAML-parsed).
+        """Apply `key.path=value` CLI overrides (values YAML-parsed, or
+        JSON-parsed without PyYAML).
 
         Overrides whose key path does not already exist in the config are
         applied but WARNED about loudly — a typo'd key (`data.train_dir`
@@ -156,8 +221,6 @@ class Config:
         back to defaults.
         """
         import logging
-
-        import yaml
 
         cfg = self.copy()
         for item in overrides:
@@ -170,7 +233,7 @@ class Config:
                     "Override key %r does not exist in the config file — "
                     "applying anyway, but check for a typo (known keys at "
                     "this level: %s)", key, cfg._siblings_of(key))
-            value = yaml.safe_load(raw)
+            value = _parse_value(raw)
             if isinstance(value, str):
                 # YAML 1.1 only accepts scientific notation with a dot
                 # ("3.0e-5"); a bare "3e-5" on the CLI parses as a string.

@@ -13,7 +13,9 @@ state-dict key by joining it with dots and renaming the leaf. Layouts:
 ``from_flax`` takes the nested dict of numpy arrays that
 ``jax.device_get(params)`` gives (with or without the top ``"params"``
 level); ``to_flax`` returns ``{"params": ...}`` as ``model.init`` does.
-Both copy values exactly.
+Both copy values exactly. ``optimizer_state_from_optax`` carries the
+stage-1 optimizer's state across the same way, so a run of the JAX trainer
+can continue in the port's.
 """
 
 from __future__ import annotations
@@ -78,3 +80,45 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return {"params": root}
+
+
+def _find(node, fields: Tuple[str, ...]):
+    """The first object in a nest of tuples (optax's chain and named-tuple
+    states) that has every attribute in ``fields``."""
+    if all(hasattr(node, f) for f in fields):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find(child, fields)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_optax(opt_state, model: torch.nn.Module
+                               ) -> Dict[str, Any]:
+    """An optax state of the stage-1 optimizer (``chain(clip_by_global_norm,
+    adamw)``, optionally inside ``MultiSteps``), as ``jax.device_get``
+    gives it → ``training.trainer.Optimizer.state_dict()`` for ``model``:
+    Adam's moments ``mu``/``nu`` and applied-update ``count``, and under
+    MultiSteps the accumulated gradient and ``mini_step``. Optax's named
+    tuples are found by their fields, so optax is not imported."""
+    names = [n for n, _ in model.named_parameters()]
+    multi = _find(opt_state, ("mini_step", "gradient_step", "acc_grads",
+                              "inner_opt_state"))
+    adam = _find(multi.inner_opt_state if multi is not None else opt_state,
+                 ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    count = int(np.asarray(adam.count))
+    mu, nu = from_flax(adam.mu), from_flax(adam.nu)
+    state: Dict[str, Any] = {
+        "count": count,
+        "mu": {n: mu[n] for n in names} if count else {},
+        "nu": {n: nu[n] for n in names} if count else {},
+        "mini_step": 0, "acc_grads": None}
+    if multi is not None:
+        acc = from_flax(multi.acc_grads)
+        state["mini_step"] = int(np.asarray(multi.mini_step))
+        state["acc_grads"] = {n: acc[n] for n in names}
+    return state

@@ -17,7 +17,9 @@ import torch
 
 from m2tts_tpu_torch.models.tts_model import M2TTS
 from m2tts_tpu_torch.serving import pipeline
-from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+from m2tts_tpu_torch.training import train
+from m2tts_tpu_torch.training.trainer import Stage1Trainer
+from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, Config
 
 torch.set_num_threads(2)
 
@@ -60,7 +62,9 @@ def test_no_jax_or_reference_package_imported():
     assert "m2tts_tpu_torch.serving.pipeline" in report["imported"]
     assert "m2tts_tpu_torch.ops.cuda.vocoder" in report["imported"]
     for name in ("serving.server", "serving.streaming", "serving.batcher",
-                 "serving.stream_batcher", "utils.checkpoint"):
+                 "serving.stream_batcher", "utils.checkpoint",
+                 "training.trainer", "training.train", "data.dataset",
+                 "data.prefetch", "utils.torch_compat"):
         assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
@@ -83,6 +87,12 @@ def test_entry_points_default_to_cuda():
                   text_encoder_layers=1, decoder_layers=1)
     with pytest.raises(RuntimeError):
         pipeline.Synthesizer(model)
+    with pytest.raises(RuntimeError):
+        Stage1Trainer(Config({"model": FLAGSHIP_MODEL}))
+    with pytest.raises(RuntimeError):
+        pipeline.from_torch_checkpoint("reference.pt")
+    with pytest.raises(RuntimeError):
+        train.main(["training.max_steps=1"])  # the CLI's default device
 
 
 def _run_smoke(cwd: Path):

@@ -12,7 +12,9 @@ import torch
 from m2tts_tpu.models import build_model as jax_build_model
 from m2tts_tpu.utils.config import load_config
 from m2tts_tpu_torch.models.tts_model import build_model
-from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                                          FLAGSHIP_XL_MODEL,
+                                          FLAGSHIP_XL_TRAINING)
 from m2tts_tpu_torch.utils.params import from_flax, to_flax
 
 torch.set_num_threads(2)
@@ -77,3 +79,14 @@ def test_layouts():
 def test_flagship_model_matches_yaml():
     assert load_config(CONFIGS / "flagship_tpu.yaml").model.to_dict() \
         == FLAGSHIP_MODEL
+
+
+@pytest.mark.parametrize("name,model,training", [
+    ("flagship_tpu.yaml", FLAGSHIP_MODEL, FLAGSHIP_TRAINING),
+    ("flagship_xl.yaml", FLAGSHIP_XL_MODEL, FLAGSHIP_XL_TRAINING)],
+    ids=["flagship", "flagship_xl"])
+def test_training_configs_match_yaml(name, model, training):
+    cfg = load_config(CONFIGS / name)
+    assert cfg.model.to_dict() == model
+    assert {"training": cfg.training.to_dict(),
+            "data": cfg.data.to_dict()} == training

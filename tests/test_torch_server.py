@@ -523,6 +523,43 @@ def test_flags_and_cuda_default():
     assert synth.model.mel_channels == 64 and synth.device.type == "cpu"
 
 
+def test_torch_checkpoint_flag_serves_the_pt(tmp_path):
+    """``--torch-checkpoint`` serves a reference-layout ``.pt``: /synthesize
+    answers the PCM of ``from_torch_checkpoint`` on it exactly, and the JAX
+    package's ``from_torch_checkpoint`` within ±1 LSB."""
+    from m2tts_tpu.serving import pipeline as jpipeline
+    from m2tts_tpu_torch.models.tts_model import init_params
+    from m2tts_tpu_torch.serving.pipeline import from_torch_checkpoint
+    from m2tts_tpu_torch.utils.params import to_flax
+    from m2tts_tpu_torch.utils.torch_compat import reference_state_dict
+
+    model = init_params(M2TTS(**KW, duration_norm="batch"),
+                        torch.Generator().manual_seed(5), "cpu")
+    path = tmp_path / "reference.pt"
+    torch.save({"model_state_dict": reference_state_dict(
+        to_flax(model.state_dict()), 1, 1, 4),
+        "config": {"model": MODEL_CFG}}, path)
+    args = tserver.parse_args(["--torch-checkpoint", str(path),
+                               "--device", "cpu"])
+    synth = tserver.build_synthesizer(args)
+    assert synth.model.duration_predictor.predictor.block1.norm_kind == \
+        "batch"
+    srv = _Server(synth)
+    try:
+        status, ctype, body = _post(srv.url + "/synthesize",
+                                    {"text": "hello reference",
+                                     "duration_scale": SCALE})
+    finally:
+        srv.close()
+    assert status == 200 and ctype == "audio/wav"
+    pcm = _pcm_of_wav(body)
+    assert pcm.size > 0
+    np.testing.assert_array_equal(pcm, from_torch_checkpoint(
+        path, device="cpu").synthesize("hello reference", SCALE)["audio_pcm"])
+    _close_pcm(pcm, jpipeline.from_torch_checkpoint(str(path)).synthesize(
+        "hello reference", SCALE)["audio_pcm"])
+
+
 def test_module_entry_point_serves(tmp_path):
     """``python -m m2tts_tpu_torch.serving.server`` on the CPU answers
     /healthz (the flagship model, seeded random weights)."""
