@@ -47,6 +47,26 @@ only the loop's lengths and the schedule are overridden, ``TRAIN_OVERRIDES``):
   checkpoints (``auto``, so ``vocoder_tc.cu``) on the eight texts, PCM
   equal at 0 LSB to a Synthesizer on the trainer's in-memory weights.
 
+Then stage-2 GAN training on those checkpoints (``Stage2Trainer`` on
+``FLAGSHIP_MODEL`` + ``STAGE2_TRAINING``: batch 32, bf16, 32768-sample
+segments, spectral norm, envelope loss, EMA; only the loop's lengths and
+the warmup are overridden, ``STAGE2_OVERRIDES``):
+
+- ``train_stage2``: 30 steps through the prefetcher and 30 with the device
+  data cache, each warm-started from the ``train`` phase's stage-1
+  checkpoint, validating once with the quality pass (STOI, MCD), pinning
+  ``best/`` and writing a checkpoint; steps/s, ms per fused step by bucket,
+  peak memory, every logged loss (fails on a non-finite one);
+  ``train_stage2_xl``: 5 steps at ``configs/stage2_xl_quality.yaml``'s
+  widths (device cache and both adaptive guards on), warm-started from the
+  ``train_xl`` run;
+- ``train_stage2_vs_cpu``: two f32 GAN steps on the card against the CPU
+  (same weights and batch, dropout 0, TF32 off), held to ``STAGE2_VS_CPU``;
+- ``train_stage2_to_serve``: the stage-2 run's latest and ``best``
+  checkpoints (their ``generator_ema``) served through ``auto`` on the
+  eight texts: PCM equal at 0 LSB to the in-memory EMA weights, within the
+  bf16 bar of the ``mm`` vocoder on the same weights.
+
 One JSON line per phase; the line before the last lists the kernels (with
 the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
@@ -57,8 +77,9 @@ code is nonzero. Needs one CUDA device, ``nvcc`` and no network or PyYAML.
 adds a ``main_path_profile`` line: device time by kernel name for one
 batch-64 ``synthesize_batch`` (torch.profiler) and the device's busy share,
 a ``stream_profile_f32`` and ``stream_profile_bf16`` line: the same for
-one stream of the longest text, and a ``train_profile`` line: the same for
-5 flagship train steps at the (128, 512) bucket.
+one stream of the longest text, a ``train_profile`` line: the same for
+5 flagship train steps at the (128, 512) bucket, and a
+``train_stage2_profile`` line: the same for 3 fused GAN steps there.
 """
 
 from __future__ import annotations
@@ -118,6 +139,32 @@ XL_STEPS = 5
 # held to a tenth of lr (1e-3)
 TRAIN_VS_CPU = {"loss_rel": 1e-5, "grad_norm_rel": 1e-5, "grad_rel_l2": 1e-5,
                 "params_abs": 1e-4}
+# stage-2 training: the only changes to STAGE2_TRAINING's recipe (one
+# validation with the quality pass and one checkpoint, at the last step)
+STAGE2_OVERRIDES = {"training.max_steps": 30, "training.log_every": 10,
+                    "training.validate_every": 30,
+                    "training.save_every": 30,
+                    "training.warmup_steps": 10}
+STAGE2_XL_STEPS = 5
+# two f32 GAN steps on the card against the same steps on the CPU, and
+# both against the steps in f64 on the CPU. The losses and the
+# discriminator (its gradient's global norm, its weights after the steps)
+# take stage 1's bars: relative, and lr/10, at the recipe's lr 2e-5 (at
+# stage 1's 1e-3 the first update moves the weights so far that the two
+# runs' second-step losses part by 1e-4). The generator's
+# gradient comes from the perceptual and envelope losses through the
+# vocoder, and at these weights it is ill-conditioned in f32: near-silent
+# mel bins and bands amplify the forward's rounding, so the CPU's own f32
+# generator gradient lies 1e-3 (relative L2) from the f64 one, and two f32
+# runs cannot agree to 1e-5. So the card's generator gradient, as a vector
+# and by its global norm (which moves by at most the vector's error), must
+# lie within g_vs_f64 times the CPU's vector error of the f64 gradient (+
+# g_floor), and at most g_vs_f64 times as many generator weights as the
+# CPU's may end more than lr/10 from the f64 steps' (Adam's first update is
+# about lr·sign(g), so a weight whose gradient sign the rounding flips
+# lands 2·lr away)
+STAGE2_VS_CPU = {"loss_rel": 1e-5, "grad_norm_rel": 1e-5, "params_lr": 0.1,
+                 "g_vs_f64": 2.0, "g_floor": 1e-7}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 495e12 / 3, "bf16": 989e12}
 FMA_FLOPS = 67e12
@@ -725,13 +772,14 @@ def http_phase(synth, streamer, scale: float, card: str, lsb_bar,
     return out
 
 
-def train_config(model: dict, training: dict, out_dir: str, **extra):
-    """The flagship-style config with ``TRAIN_OVERRIDES`` (and ``extra``)
-    applied and every output under ``out_dir``."""
+def train_config(model: dict, training: dict, out_dir: str,
+                 overrides=TRAIN_OVERRIDES, **extra):
+    """The flagship-style config with ``overrides`` (and ``extra``) applied
+    and every output under ``out_dir``."""
     from m2tts_tpu_torch.utils.config import Config
 
     cfg = Config({"model": model, **training})
-    for key, value in {**TRAIN_OVERRIDES, **extra}.items():
+    for key, value in {**overrides, **extra}.items():
         cfg.set(key, value)
     cfg.set("paths.output_dir", out_dir)
     cfg.set("paths.checkpoint_dir", f"{out_dir}/checkpoints")
@@ -739,29 +787,31 @@ def train_config(model: dict, training: dict, out_dir: str, **extra):
     return cfg
 
 
-def bucket_batches(trainer) -> dict:
-    """One device batch of each bucket shape (leftover groups padded by
-    cycling, as ``make_batches`` pads them with ``drop_last=False``)."""
+def bucket_batches(trainer, put, audio_samples=None) -> dict:
+    """One device batch (``put`` of the host batch) of each bucket shape
+    (leftover groups padded by cycling, as ``make_batches`` pads them with
+    ``drop_last=False``)."""
     from m2tts_tpu_torch.data.dataset import make_batches
 
     out = {}
     for b in make_batches(trainer.dataset, trainer.batch_size,
                           trainer.buckets, seed=0, shuffle=False,
-                          drop_last=False):
+                          drop_last=False, audio_samples=audio_samples):
         key = (b["phoneme_ids"].shape[1], b["mel"].shape[1])
-        out.setdefault(key, trainer._put(b))
+        if key not in out:
+            out[key] = put(b)
     return out
 
 
-def step_ms(trainer, batch, iters: int = 8, warmup: int = 2) -> float:
-    """Host wall ms per train step, ``iters`` steps between two
-    synchronisations (no host read inside, as in the training loop)."""
+def step_ms(step, batch, iters: int = 8, warmup: int = 2) -> float:
+    """Host wall ms per train step ``step(batch)``, ``iters`` steps between
+    two synchronisations (no host read inside, as in the training loop)."""
     for _ in range(warmup):
-        trainer._train_step(batch)
+        step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        trainer._train_step(batch)
+        step(batch)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
 
@@ -853,9 +903,10 @@ def train_phase(out_dir: str, card: str, profile: bool = False) -> dict:
         runs[name] = train_run(cfg, card)
         reports[name] = runs[name]["report"]
     trainer = runs["prefetcher"]["trainer"]
-    batches = bucket_batches(trainer)
+    batches = bucket_batches(trainer, trainer._put)
     reports["ms_per_step_by_bucket"] = {
-        f"{t},{m}": step_ms(trainer, b) for (t, m), b in batches.items()}
+        f"{t},{m}": step_ms(trainer._train_step, b)
+        for (t, m), b in batches.items()}
     tcfg = trainer.config.get("training")
     out = {"phase": "train", "card": card, "overrides": TRAIN_OVERRIDES,
            "batch_size": trainer.batch_size, "bf16": trainer.bf16,
@@ -1021,6 +1072,353 @@ def train_to_serve_phase(train: dict, buckets: dict, card: str,
                   "max_pcm_lsb": 0}
     out["checkpoint_steps"] = {"latest": served["latest"].config.get(
         "training.max_steps"), "best": run["best"]["step"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+
+def _eval_weights(trainer) -> dict:
+    """Host-independent copies of the weights a stage-2 trainer scores and
+    serves (its EMA)."""
+    return {k: v.detach().clone() for k, v in trainer._eval_params().items()}
+
+
+def _is_loss(key: str) -> bool:
+    return key.endswith("_loss") or key == "adv_guard"
+
+
+def stage2_run(cfg, card: str) -> dict:
+    """One stage-2 run of ``cfg`` on the card, warm-started from the
+    stage-1 checkpoint it names: the run's wall time and peak memory, every
+    logged loss, the validation's quality metrics; the trainer, its final
+    EMA weights and the EMA it pinned as best."""
+    from m2tts_tpu_torch.data.dataset import DummyDataset
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.checkpoint import load_for_inference
+
+    trainer = Stage2Trainer(cfg, device="cuda")
+    if not isinstance(trainer.dataset, DummyDataset):
+        raise RuntimeError(f"expected the data-free DummyDataset, got "
+                           f"{type(trainer.dataset).__name__}")
+    init_from = cfg.get("training.init_generator_from")
+    stage1, _, stage1_step = load_for_inference(init_from)
+    model_sd = trainer.model.state_dict()
+    if not all(torch.equal(model_sd[k].cpu(), v) for k, v in stage1.items()):
+        raise RuntimeError(f"the generator was not warm-started from "
+                           f"{init_from}")
+    best = {}
+    pin = trainer.save_best_checkpoint
+
+    def save_best(score):  # keep the pinned EMA for train_stage2_to_serve
+        best.update(step=trainer.step, score=score,
+                    weights=_eval_weights(trainer))
+        pin(score)
+
+    trainer.save_best_checkpoint = save_best
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    final = _eval_weights(trainer)
+    rows = _read_metrics(cfg.get("paths.log_dir"))
+    logged = {int(r["step"]): {k: float(v) for k, v in r.items()
+                               if v and _is_loss(k)}
+              for r in rows if r.get("total_loss")}
+    val = {k[len("val_"):]: float(v) for r in rows for k, v in r.items()
+           if k.startswith("val_") and v}
+    values = [v for losses in logged.values() for v in losses.values()]
+    steps = int(cfg.get("training.max_steps"))
+    if len(logged) != steps // int(cfg.get("training.log_every")) \
+            or not all(map(math.isfinite, values + list(val.values()))):
+        raise RuntimeError(f"non-finite or missing losses: {logged} {val}")
+    need = ("quality_score_audio", "utt_stoi", "mcd", "spectral_loss")
+    if any(k not in val for k in need):
+        raise RuntimeError(f"validation lacks {need}: {sorted(val)}")
+    if trainer.step != steps or trainer.ckpt.latest_step() != steps \
+            or best.get("step") != steps:
+        raise RuntimeError(f"run ended at step {trainer.step}, checkpoint "
+                           f"{trainer.ckpt.latest_step()}, best "
+                           f"{best.get('step')}")
+    return {"trainer": trainer, "final": final, "best": best, "report": {
+        "steps": steps, "wall_s": wall, "steps_per_s": steps / wall,
+        "logged_steps_per_s": [float(r["steps_per_sec"]) for r in rows
+                               if r.get("steps_per_sec")],
+        "max_memory_allocated_gb": peak / 1e9,
+        "losses_logged": logged, "validation": val,
+        "warm_start_step": stage1_step, "best_step": best["step"],
+        "checkpoints": trainer.ckpt.all_steps()}}
+
+
+def train_stage2_phase(out_dir: str, card: str, stage1_dir, stage1_xl_dir,
+                       profile: bool = False) -> dict:
+    """30 flagship GAN steps through the DevicePrefetcher and 30 with the
+    device data cache, both warm-started from the stage-1 checkpoint; ms
+    per fused step by bucket; with ``profile`` the device time of 3 steps
+    at the (128, 512) bucket; then 5 steps at the stage-2 XL config's
+    widths, warm-started from the stage-1 XL run."""
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL, STAGE2_TRAINING,
+                                              STAGE2_XL_MODEL,
+                                              STAGE2_XL_TRAINING)
+
+    t0 = time.perf_counter()
+    runs, reports = {}, {}
+    for name, cache in (("prefetcher", False), ("device_cache", True)):
+        cfg = train_config(FLAGSHIP_MODEL, STAGE2_TRAINING,
+                           f"{out_dir}/{name}", overrides=STAGE2_OVERRIDES,
+                           **{"training.device_data_cache": cache,
+                              "training.init_generator_from": str(stage1_dir)})
+        runs[name] = stage2_run(cfg, card)
+        reports[name] = runs[name]["report"]
+    trainer = runs["prefetcher"]["trainer"]
+    rng = np.random.default_rng(SEED)  # segments off the training stream
+    batches = bucket_batches(
+        trainer, lambda b: trainer._transfer.transfer(trainer._prepare(b, rng)),
+        trainer._max_audio_samples())
+    reports["ms_per_step_by_bucket"] = {
+        f"{t},{m}": step_ms(trainer.train_step, b)
+        for (t, m), b in batches.items()}
+    tcfg = trainer.config.get("training")
+    out = {"phase": "train_stage2", "card": card,
+           "overrides": STAGE2_OVERRIDES, "batch_size": trainer.batch_size,
+           "bf16": trainer.bf16, "segment_samples":
+               trainer.seg_frames * trainer.upsample,
+           "spectral_norm": trainer.discriminator.spectral_norm,
+           "disc_lowering": trainer.disc_lowering,
+           "ema_decay": trainer.ema_decay, "buckets": trainer.buckets,
+           "dataset_size": len(trainer.dataset),
+           "learning_rate": tcfg.get("learning_rate"),
+           "discriminator_params": sum(p.numel() for p in trainer.d_params),
+           **reports, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if profile:
+        b512 = batches[tuple(trainer.buckets[1])]
+        emit(profile_batch(lambda: [trainer.train_step(b512)
+                                    for _ in range(3)],
+                           card, phase="train_stage2_profile"))
+    del batches
+
+    # the stage-2 XL config: device cache and both adaptive guards on
+    cfg = train_config(STAGE2_XL_MODEL, STAGE2_XL_TRAINING, f"{out_dir}/xl",
+                       overrides=STAGE2_OVERRIDES,
+                       **{"training.max_steps": STAGE2_XL_STEPS,
+                          "training.log_every": STAGE2_XL_STEPS,
+                          "training.validate_every": 1000,
+                          "training.save_every": 1000,
+                          "training.init_generator_from": str(stage1_xl_dir)})
+    t_xl = time.perf_counter()
+    xl = Stage2Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = xl.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = {k: v for k, v in last.items() if _is_loss(k)}
+    if xl.step != STAGE2_XL_STEPS or "adv_guard" not in losses \
+            or not all(map(math.isfinite, losses.values())):
+        raise RuntimeError(f"stage-2 XL run: step {xl.step}, losses {last}")
+    emit({"phase": "train_stage2_xl", "card": card, "steps": STAGE2_XL_STEPS,
+          "params": sum(p.numel() for p in xl.g_params),
+          "device_data_cache": xl.device_data_cache,
+          "guard_floors": [xl.adaptive_adv_floor, xl.adaptive_d_lr_floor],
+          "wall_s": wall, "steps_per_s": STAGE2_XL_STEPS / wall,
+          "logged_steps_per_s": last["steps_per_sec"], "losses": losses,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_xl})
+    xl.close()
+    del xl
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out
+
+
+def train_stage2_vs_cpu_phase(out_dir: str, card: str) -> dict:
+    """Two f32 fused GAN steps of the flagship at the (128, 512) bucket,
+    batch 8, 8192-sample segments, dropout 0, the recipe's lr held
+    constant, both guards on, on the card and on the CPU from the same
+    weights and batch, TF32 off on the card; and the same two steps in f64
+    on the CPU, the reference the generator's side is held to
+    (``STAGE2_VS_CPU``)."""
+    from m2tts_tpu_torch.data.dataset import make_batches
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, STAGE2_TRAINING
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr = STAGE2_TRAINING["training"]["learning_rate"]
+    extra = {"model.text_encoder.dropout": 0.0, "training.bf16": False,
+             "training.batch_size": 8, "training.audio_segment_len": 8192,
+             "training.lr_scheduler": "constant", "training.warmup_steps": 0,
+             "training.learning_rate": lr,
+             "training.adversarial_warmup_steps": 2,
+             "training.adaptive_adv_dloss_floor": 2.0,
+             "training.adaptive_d_lr_floor": 2.0}
+    tr = {run: Stage2Trainer(train_config(
+        FLAGSHIP_MODEL, STAGE2_TRAINING, f"{out_dir}/vs_cpu_{run}",
+        overrides=STAGE2_OVERRIDES, **extra),
+        device="cuda" if run == "cuda" else "cpu")
+        for run in ("cpu", "cuda", "f64")}
+    for run in ("cuda", "f64"):
+        t = tr[run]
+        t.model.load_state_dict(tr["cpu"].model.state_dict())
+        t.discriminator.load_state_dict(tr["cpu"].discriminator.state_dict())
+        if run == "f64":  # the parameters (and so the optimizers') in f64
+            t.model.double()
+            t.discriminator.double()
+        t.ema = [p.detach().clone() for p in t.g_params]
+    grads = {}
+    for run, t in tr.items():  # record each update's gradients
+        for net in ("d", "g"):
+            def update(g, *args, _fn=getattr(t, f"_{net}_update"),
+                       _key=(run, net)):
+                grads[_key] = [x.detach().double().cpu() for x in g]
+                return _fn(g, *args)
+
+            setattr(t, f"_{net}_update", update)
+    frames = tr["cpu"].buckets[1][1]  # the (128, 512) bucket
+    host = next(b for b in make_batches(
+        tr["cpu"].dataset, 8, tr["cpu"].buckets, seed=0,
+        audio_samples=tr["cpu"]._max_audio_samples())
+        if b["mel"].shape[1] == frames)
+    host = tr["cpu"]._prepare(host, np.random.default_rng(SEED))
+    batches = {"cpu": host, "cuda": host, "f64": {
+        k: v.astype(np.float64) if getattr(v, "dtype", None) == np.float32
+        else v for k, v in host.items()}}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def params(run, module):
+        return {k: v.detach().double().cpu() for k, v in
+                getattr(tr[run], module).state_dict().items()}
+
+    steps = []
+    for _ in range(2):
+        m = {run: {k: v.item() for k, v in tr[run].train_step(
+            dict(batches[run])).items()} for run in tr}
+        if not set(m["cpu"]) == set(m["cuda"]) == set(m["f64"]):
+            raise RuntimeError(f"metric keys differ: {m}")
+        st = {"losses_cpu": m["cpu"],
+              "loss_rel": {k: rel(m["cuda"][k], v)
+                           for k, v in m["cpu"].items()}}
+        norm = {k: math.sqrt(sum(float((x ** 2).sum()) for x in g))
+                for k, g in grads.items()}
+        d_want = params("cpu", "discriminator")
+        st["d"] = {"grad_norm": {r: norm[(r, "d")] for r in tr},
+                   "grad_norm_rel": rel(norm[("cuda", "d")],
+                                        norm[("cpu", "d")]),
+                   "params_max_abs": max(
+                       (v - d_want[k]).abs().max().item()
+                       for k, v in params("cuda", "discriminator").items())}
+        g_ref, p_ref = grads[("f64", "g")], params("f64", "model")
+        st["g"] = {"grad_norm": {r: norm[(r, "g")] for r in tr}}
+        for run in ("cpu", "cuda"):
+            err = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in
+                                zip(grads[(run, "g")], g_ref)))
+            off = sum(int(((v - p_ref[k]).abs()
+                           > STAGE2_VS_CPU["params_lr"] * lr).sum())
+                      for k, v in params(run, "model").items())
+            st["g"][run] = {
+                "grad_norm_rel_f64": rel(norm[(run, "g")], norm[("f64", "g")]),
+                "grad_rel_l2_f64": err / norm[("f64", "g")],
+                "params_off_lr10_f64": off}
+        st["g"]["params_max_abs_vs_cpu"] = max(
+            (v - params("cpu", "model")[k]).abs().max().item()
+            for k, v in params("cuda", "model").items())
+        steps.append(st)
+    bars = STAGE2_VS_CPU
+    for st in steps:
+        g_cpu, g_card = st["g"]["cpu"], st["g"]["cuda"]
+        radius = (bars["g_vs_f64"] * g_cpu["grad_rel_l2_f64"]
+                  + bars["g_floor"])
+        if (max(st["loss_rel"].values()) > bars["loss_rel"]
+                or st["d"]["grad_norm_rel"] > bars["grad_norm_rel"]
+                or st["d"]["params_max_abs"] > bars["params_lr"] * lr
+                or g_card["grad_rel_l2_f64"] > radius
+                or g_card["grad_norm_rel_f64"] > radius
+                or g_card["params_off_lr10_f64"]
+                > bars["g_vs_f64"] * g_cpu["params_off_lr10_f64"]):
+            raise RuntimeError(f"GAN step on the card vs the CPU: {st}")
+    out = {"phase": "train_stage2_vs_cpu", "card": card, "bars": bars,
+           "learning_rate": lr,
+           "shape": list(host["mel"].shape),
+           "segment_samples": host["audio_seg"].shape[1],
+           "n_generator_params": sum(p.numel() for p in tr["cpu"].g_params),
+           "tf32": False, "steps": steps,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    for t in tr.values():
+        t.close()
+    return out
+
+
+def train_stage2_to_serve_phase(stage2: dict, buckets: dict, card: str,
+                                counters: Counters, lsb_bar) -> dict:
+    """The prefetcher run's latest and best stage-2 checkpoints served by
+    ``from_checkpoint`` (``auto``: bf16 on ``vocoder_tc.cu``; both load
+    ``generator_ema``) on the eight texts, against Synthesizers on the
+    trainer's in-memory EMA weights (0 LSB) and against the plain ``mm``
+    vocoder on the same weights (the bf16 bar)."""
+    from m2tts_tpu_torch.models.tts_model import build_model
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+
+    t0 = time.perf_counter()
+    run = stage2["runs"]["prefetcher"]
+    ckdir = run["trainer"].ckpt.directory
+
+    def in_memory(weights, backend):
+        model = build_model(FLAGSHIP_MODEL)
+        model.load_state_dict(weights)
+        return pipeline.Synthesizer(model, vocoder_backend=backend,
+                                    device="cuda", **buckets)
+
+    served = {k: pipeline.from_checkpoint(
+        ckdir, step=None if k == "latest" else "best", device="cuda",
+        vocoder_backend="auto", **buckets) for k in ("latest", "best")}
+    weights = {"latest": run["final"], "best": run["best"]["weights"]}
+    for s in served.values():
+        if (s.vocoder_backend, s.compute_dtype) != ("cuda", "bf16"):
+            raise RuntimeError(f"auto resolved to {s.vocoder_backend}/"
+                               f"{s.compute_dtype}")
+    ids, lengths = packed_eval_texts(served["latest"])
+    scale = calibrate_scale(served["latest"], ids, lengths)
+    counters.zero()
+    got = {k: s.synthesize_batch(EVAL_TEXTS, duration_scale=scale)
+           for k, s in served.items()}
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"train_stage2_to_serve skipped the kernel: "
+                           f"{launches}")
+    out = {"phase": "train_stage2_to_serve", "card": card,
+           "launches": launches, "duration_scale": scale}
+    for k in served:
+        refs = {b: in_memory(weights[k], b).synthesize_batch(
+            EVAL_TEXTS, duration_scale=scale) for b in ("auto", "mm")}
+        out[k] = {"frames": [r["frames"] for r in got[k]]}
+        vs_mm = []
+        for i, (a, b, c) in enumerate(zip(got[k], refs["auto"],
+                                          refs["mm"])):
+            if not a["frames"] == b["frames"] == c["frames"] > 0 \
+                    or a.get("truncated") or not np.any(a["audio_pcm"]):
+                raise RuntimeError(f"{k} text {i}: frames {a['frames']} vs "
+                                   f"{b['frames']} / {c['frames']}, "
+                                   f"truncated {a.get('truncated')}")
+            pcm_diff(a["audio_pcm"], b["audio_pcm"], (0, None),
+                     f"stage-2 {k} checkpoint vs in-memory EMA, text {i}")
+            vs_mm.append(pcm_diff(a["audio_pcm"], c["audio_pcm"], lsb_bar,
+                                  f"stage-2 {k} checkpoint vs mm, text {i}"))
+        out[k].update(max_pcm_lsb_vs_ema=0, max_pcm_lsb_vs_mm=max(
+            d["max_pcm_lsb"] for d in vs_mm), mean_pcm_lsb_vs_mm=float(
+            np.mean([d["mean_pcm_lsb"] for d in vs_mm])))
+    out["checkpoint_steps"] = {"latest": run["trainer"].ckpt.latest_step(),
+                               "best": run["best"]["step"]}
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -1326,11 +1724,25 @@ def main() -> int:
         train_vs_cpu_phase(tdir, card)
         paths["train_to_serve"] = train_to_serve_phase(
             train, buckets, card, counters)["launches"]
+        stage1_dir = train["runs"]["prefetcher"]["trainer"].ckpt.directory
         for run in train["runs"].values():
             run["trainer"].close()
         del train
+        torch.cuda.empty_cache()
 
-    # ---- 7. kernels line, then the result
+        # ---- 7. stage 2 on the stage-1 checkpoints, then its checkpoints
+        # served through the kernel
+        stage2 = train_stage2_phase(f"{tdir}/stage2", card, stage1_dir,
+                                    f"{tdir}/xl/checkpoints",
+                                    "--profile" in sys.argv[1:])
+        train_stage2_vs_cpu_phase(f"{tdir}/stage2", card)
+        paths["train_stage2_to_serve"] = train_stage2_to_serve_phase(
+            stage2, buckets, card, counters, lsb_bar["bf16"])["launches"]
+        for run in stage2["runs"].values():
+            run["trainer"].close()
+        del stage2
+
+    # ---- 8. kernels line, then the result
     def launched(name):
         return {"launches": sum(c[name] for c in paths.values()),
                 "paths": [p for p, c in paths.items() if c[name]],

@@ -26,7 +26,8 @@ import torch
 
 _OK, _DONE, _ERROR = 0, 1, 2
 
-TRANSFER_KEYS = ("mel", "audio")  # the float arrays transfer_dtype applies to
+# the float arrays transfer_dtype applies to (audio_seg: stage 2's targets)
+TRANSFER_KEYS = ("mel", "audio", "audio_seg")
 
 
 class DevicePrefetcher:
@@ -120,7 +121,7 @@ class BatchTransfer:
     """Host batch (dict of numpy arrays) → dict of tensors on ``device``.
 
     0-d entries (``n_valid``) stay on the host. With ``transfer_dtype`` the
-    float32 ``mel`` and ``audio`` arrays are cast on the host by torch
+    float32 ``TRANSFER_KEYS`` arrays are cast on the host by torch
     (round to nearest even) before the copy, halving its bytes for bf16.
     ``put`` may run in any thread; ``ready`` runs in the thread whose
     current stream consumes the batch. ``transfer(batch)`` does both.

@@ -127,18 +127,53 @@ class TransformerEncoderLayer(nn.Module):
         return x + self.dropout(self.ffn(self.norm2(x)))
 
 
+def spectral_normalize(w: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
+    """``w`` divided by its largest singular value, with dim 0 as the
+    output dim and every other dim as the input dim (a conv weight ``(out,
+    in/g, k)``: the flax kernel ``(k, in/g, out)`` as a ``[k·in/g, out]``
+    matrix, up to a permutation of rows, which leaves every norm alone).
+    Stateless: ``n_iter`` power iterations from the uniform start
+    ``1/sqrt(out)``, eps 1e-12 beside every norm, in ``w``'s dtype, so the
+    same weights give the same sigma at every call (unlike
+    ``torch.nn.utils.spectral_norm``, which carries ``u`` between calls)."""
+    mat = w.reshape(w.shape[0], -1).t()  # [in, out]
+    v = torch.full((mat.shape[1],), 1.0 / math.sqrt(mat.shape[1]),
+                   dtype=mat.dtype, device=mat.device)
+    for _ in range(n_iter):
+        u = mat @ v
+        u = u / (torch.linalg.vector_norm(u) + 1e-12)
+        v = mat.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+    sigma = u @ (mat @ v)
+    return w / (sigma + 1e-12)
+
+
 class Conv1d(nn.Module):
-    """1D conv on [B, T, C] with symmetric padding (k-1)·d//2."""
+    """1D conv on [B, T, C] with symmetric padding (k-1)·d//2 and stride
+    ``stride``. With ``spectral_norm`` the weight is divided by its
+    spectral norm (``spectral_normalize``) at every application; the
+    parameter stays ``conv.weight`` either way."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 dilation: int = 1, groups: int = 1, use_bias: bool = True):
+                 dilation: int = 1, groups: int = 1, use_bias: bool = True,
+                 stride: int = 1, spectral_norm: bool = False):
         super().__init__()
+        self.spectral_norm = spectral_norm
         self.conv = nn.Conv1d(in_features, features, kernel_size,
+                              stride=stride,
                               padding=(kernel_size - 1) * dilation // 2,
                               dilation=dilation, groups=groups, bias=use_bias)
 
+    def channels_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv on torch's [B, C, T] layout."""
+        c = self.conv
+        if not self.spectral_norm:
+            return c(x)
+        return F.conv1d(x, spectral_normalize(c.weight), c.bias, c.stride,
+                        c.padding, c.dilation, c.groups)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x.transpose(1, 2)).transpose(1, 2)
+        return self.channels_first(x.transpose(1, 2)).transpose(1, 2)
 
 
 class ConvTranspose1d(nn.Module):

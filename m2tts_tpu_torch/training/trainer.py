@@ -195,7 +195,12 @@ class Optimizer:
                                   scale)
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor]) -> None:
+    def update(self, grads: Sequence[torch.Tensor],
+               scale: Optional[torch.Tensor] = None) -> None:
+        """One micro-step. ``scale`` (a 0-d device tensor) multiplies the
+        applied update, weight decay included, as an optax update scaled
+        before ``apply_updates``: ``p_old + scale·(p_new − p_old)``; the
+        Adam moments advance as without it."""
         if self.acc is not None:
             n = self.mini_step
             for a, g in zip(self.acc, grads):
@@ -207,7 +212,13 @@ class Optimizer:
         for p, g in zip(self.params, self.clip(grads)):
             p.grad = g
         self.adamw.param_groups[0]["lr"] = self.schedule(self.count)
+        before = (None if scale is None  # copies of the weights
+                  else torch._foreach_mul(self.params, 1.0))
         self.adamw.step()
+        if before is not None:
+            torch._foreach_sub_(self.params, before)
+            torch._foreach_mul_(self.params, scale)
+            torch._foreach_add_(self.params, before)
         for p in self.params:
             p.grad = None
         self.count += 1

@@ -1,0 +1,890 @@
+"""Stage-2 GAN trainer in PyTorch: the text→waveform generator against a
+multi-scale discriminator, on random segments of the ground-truth waveform.
+
+Counterpart of ``m2tts_tpu/training/trainer_stage2.py``, held to the same
+arithmetic:
+
+- **the fused step** (``_gd_step``): the discriminator first, on
+  ``cat([real, fake])`` with the fake from a generator forward in train
+  mode under ``no_grad``; then the generator against the updated
+  discriminator, its fake half differentiated through the discriminator to
+  the generator, its real half forward only. Gradients are taken with
+  ``torch.autograd.grad`` over one net's parameters, so neither net's
+  update touches the other. Both generator forwards draw the same dropout
+  masks: the dropout generator is reseeded from (seed + 3, step, blow-ups)
+  before each;
+- **bf16** casts each net's f32 weights to bf16 inside the forward
+  (``torch.func.functional_call``) and the discriminator's input to bf16;
+  logits and features are upcast to f32 before the losses (and nothing is
+  narrowed: with f64 weights and batch the whole step runs in f64);
+- both nets use the port's ``Optimizer`` (optax's ``clip_by_global_norm`` +
+  ``adamw``, b1 0.8 and b2 0.99 by default, ``MultiSteps`` under
+  accumulation). ``g_updates``/``d_updates`` count each net's update calls,
+  as flax's ``TrainState.step`` does, and set the adversarial warmup ramp;
+- **the adaptive guards**: with ``adaptive_d_lr_floor`` the
+  discriminator's applied update is scaled by ``clip(d_loss/floor, 0, 1)``
+  (Adam's moments advance as without it); with
+  ``adaptive_adv_dloss_floor`` the adversarial weight is scaled by
+  ``clip(d_loss/floor, 0, 1)`` of the same batch, logged as ``adv_guard``.
+  Both stay on the device;
+- **EMA** of the generator after every generator update
+  (``torch._foreach_*``); validation, the gate, ``best/`` and serving use
+  it, and checkpoints carry it as ``generator_ema``;
+- ``alternate_gd``: the discriminator on even steps, the generator on odd
+  ones. There the generator step has no discriminator loss of its batch,
+  so the adversarial guard cannot act; the trainer warns once at init;
+- **data**: host segments from ``default_rng(seed + 2)``, the same offsets
+  as the JAX package for the same seed; or, with ``device_data_cache``,
+  whole waveforms staged on the device and windows drawn there from a
+  ``torch.Generator`` (offsets from another stream than JAX's, in the same
+  range);
+- **guards**: an out-of-memory error drops the step, restoring the last
+  host snapshot when an update had begun; non-finite losses at a log step
+  rewind to the snapshot (restored before the raise) at most
+  ``max_loss_blowups`` times; non-finite weights are never checkpointed.
+
+A checkpoint holds ``{"generator", "g_opt_state", "discriminator",
+"d_opt_state", "step"}`` and ``generator_ema``; ``load_for_inference`` and
+``serving.pipeline.from_checkpoint`` serve its EMA. The discriminator runs
+as plain convs whatever ``disc_lowering`` says (``packed`` is the same
+function re-lowered for the TPU). One device only.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from m2tts_tpu_torch.data.dataset import data_iterator, make_batches
+from m2tts_tpu_torch.data.prefetch import BatchTransfer, DevicePrefetcher
+from m2tts_tpu_torch.models.components import Dropout
+from m2tts_tpu_torch.models.discriminator import MultiScaleDiscriminator
+from m2tts_tpu_torch.models.tts_model import build_model, init_params
+from m2tts_tpu_torch.training import losses as L
+from m2tts_tpu_torch.training.losses import EarlyStopping
+from m2tts_tpu_torch.training.trainer import (Optimizer, _read_best_score,
+                                              _to_host, _write_best_score,
+                                              build_dataset)
+from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
+from m2tts_tpu_torch.utils.config import Config
+from m2tts_tpu_torch.utils.device import (MemoryTracker, ThermalMonitor,
+                                          resolve_device)
+from m2tts_tpu_torch.utils.metrics_logger import MetricsLogger
+from m2tts_tpu_torch.utils.profiling import StepProfiler
+from m2tts_tpu_torch.utils.tree import cast_params_bf16, tree_finite
+
+logger = logging.getLogger(__name__)
+
+# the stage-2 optimizers' defaults where the config is silent
+_OPT_DEFAULTS = {"gradient_clip_norm": 1.0, "adam_b1": 0.8, "adam_b2": 0.99}
+_DROPOUT, _OFFSETS = 0, 1  # noise streams of a step
+
+
+def _segment_audio(audio: np.ndarray, mel_lengths: np.ndarray,
+                   seg_frames: int, hop: int, upsample: int,
+                   rng: np.random.Generator
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side: a random mel-frame window per sample and the aligned
+    ground-truth waveform at the vocoder's effective rate.
+
+    Returns (offsets [B] int32, targets [B, seg_frames*upsample] float32).
+    """
+    B = audio.shape[0]
+    offsets = np.zeros((B,), np.int32)
+    targets = np.zeros((B, seg_frames * upsample), np.float32)
+    need_resample = upsample != hop
+    if need_resample:
+        from math import gcd
+
+        from scipy.signal import resample_poly
+
+        g = gcd(upsample, hop)
+        up, down = upsample // g, hop // g
+    for i in range(B):
+        max_off = max(int(mel_lengths[i]) - seg_frames, 0)
+        off = int(rng.integers(0, max_off + 1))
+        offsets[i] = off
+        seg = audio[i, off * hop: (off + seg_frames) * hop]
+        if len(seg) < seg_frames * hop:
+            seg = np.pad(seg, (0, seg_frames * hop - len(seg)))
+        if need_resample:
+            seg = resample_poly(seg, up, down).astype(np.float32)
+        targets[i, : len(seg)] = seg[: seg_frames * upsample]
+    return offsets, targets
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """A bf16/f16 tensor upcast to f32 before any loss arithmetic; wider
+    types pass unchanged (an f64 step stays f64)."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def _upcast(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """bf16/f16 transfer tensors → f32."""
+    return {k: _f32(v) for k, v in batch.items()}
+
+
+class Stage2Trainer:
+    """GAN training over the full text→waveform stack."""
+
+    def __init__(self, config: Config, dataset=None, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        data_axis = int(config.get("system.mesh.data", -1))
+        model_axis = int(config.get("system.mesh.model", 1))
+        if data_axis not in (-1, 1) or model_axis != 1:
+            raise NotImplementedError(
+                f"system.mesh data={data_axis} model={model_axis}: training "
+                "runs on one device until multi-GPU (ROADMAP item 12) is "
+                "ported; set data to 1 or -1 and model to 1")
+        tcfg = config.get("training", Config())
+        self.max_steps = int(tcfg.get("max_steps", 50000))
+        self.batch_size = int(tcfg.get("batch_size", 32))
+        self.bf16 = bool(tcfg.get("bf16", True))
+        self.alternate_gd = bool(tcfg.get("alternate_gd", False))
+        self.log_every = int(tcfg.get("log_every", 100))
+        self.save_every = int(tcfg.get("save_every", 2000))
+        self.validate_every = int(tcfg.get("validate_every", 1000))
+        self.seed = int(tcfg.get("seed", 1234))
+        td = tcfg.get("transfer_dtype", None)
+        self.transfer_dtype = torch.bfloat16 if td in ("bfloat16", "bf16") \
+            else (torch.float16 if td in ("float16", "fp16") else None)
+        self.hop = int(config.get("data.hop_length", 256))
+        self.device_data_cache = bool(tcfg.get("device_data_cache", False))
+        self.device_cache_max_gb = float(
+            tcfg.get("device_data_cache_max_gb", 4.0))
+        self.weights = dict(
+            mel_weight=float(tcfg.get("mel_loss_weight", 1.0)),
+            duration_weight=float(tcfg.get("duration_loss_weight", 0.1)),
+            adversarial_weight=float(tcfg.get("adversarial_loss_weight", 0.25)),
+            feature_matching_weight=float(
+                tcfg.get("feature_matching_weight", 2.0)),
+            spectral_weight=float(tcfg.get("spectral_loss_weight", 1.0)),
+            perceptual_weight=float(tcfg.get("perceptual_loss_weight", 0.5)),
+            envelope_weight=float(tcfg.get("envelope_loss_weight", 0.0)),
+        )
+        self.stft_phase_weight = float(tcfg.get("stft_phase_weight", 0.1))
+        # adv + FM weights ramp 0→1 over this many generator updates
+        self.adv_warmup = int(tcfg.get("adversarial_warmup_steps", 0))
+        self.adaptive_adv_floor = float(
+            tcfg.get("adaptive_adv_dloss_floor", 0.0))
+        self.adaptive_d_lr_floor = float(
+            tcfg.get("adaptive_d_lr_floor", 0.0))
+        self.ema_decay = float(tcfg.get("ema_decay", 0.0))
+        if self.alternate_gd and self.adaptive_adv_floor > 0:
+            logger.warning(
+                "training.adaptive_adv_dloss_floor has no effect under "
+                "training.alternate_gd: a generator step has no "
+                "discriminator loss of its own batch, so the adversarial "
+                "guard stays at full weight")
+
+        self.model = init_params(build_model(config.get("model", Config())),
+                                 torch.Generator().manual_seed(self.seed),
+                                 self.device).train()
+        self.discriminator = init_params(
+            MultiScaleDiscriminator(spectral_norm=bool(
+                tcfg.get("discriminator_spectral_norm", False))),
+            torch.Generator().manual_seed(self.seed), self.device).train()
+        disc_lowering = str(tcfg.get("disc_lowering", "auto"))
+        if disc_lowering not in ("auto", "native", "packed"):
+            raise ValueError(f"Unknown disc_lowering {disc_lowering!r}")
+        # recorded as resolved; every value runs the same plain convs
+        self.disc_lowering = ("native" if disc_lowering == "auto"
+                              or self.discriminator.spectral_norm
+                              else disc_lowering)
+        self.upsample = self.model.total_upsample
+        seg_samples = int(tcfg.get("audio_segment_len", 8192))
+        self.seg_frames = max(seg_samples // self.upsample, 8)
+        self.n_mels = int(config.get("data.n_mels", self.model.mel_channels))
+
+        self.dataset = dataset if dataset is not None else build_dataset(
+            config.get("data", Config()), keep_audio=True)
+        self.buckets = [tuple(b) for b in config.get(
+            "data.buckets", [[64, 256], [128, 512], [256, 1000]])]
+
+        init_from = tcfg.get("init_generator_from")
+        if init_from:
+            from m2tts_tpu_torch.utils.checkpoint import load_for_inference
+
+            state_dict, _, from_step = load_for_inference(init_from)
+            self.model.load_state_dict(state_dict)
+            logger.info("Generator warm-started from %s (step %d)",
+                        init_from, from_step)
+
+        opt_cfg = Config(_OPT_DEFAULTS).merge(tcfg)
+        self.g_names = [n for n, _ in self.model.named_parameters()]
+        self.g_params = [p for _, p in self.model.named_parameters()]
+        self.d_names = [n for n, _ in self.discriminator.named_parameters()]
+        self.d_params = [p for _, p in self.discriminator.named_parameters()]
+        self.g_opt = Optimizer(opt_cfg, self.model.named_parameters())
+        self.d_opt = Optimizer(opt_cfg, self.discriminator.named_parameters())
+        self.g_updates = 0
+        self.d_updates = 0
+        self.ema: Optional[List[torch.Tensor]] = (
+            [p.detach().clone() for p in self.g_params]
+            if self.ema_decay > 0 else None)
+        self._noise = torch.Generator(device=self.device)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self._noise
+        self._offsets = torch.Generator(device=self.device)
+        self._transfer = BatchTransfer(self.device, self.transfer_dtype)
+
+        out_dir = Path(config.get("paths.output_dir", "outputs/stage2"))
+        self.ckpt = CheckpointManager(
+            config.get("paths.checkpoint_dir", out_dir / "checkpoints"),
+            max_to_keep=int(tcfg.get("max_checkpoints", 10)))
+        self.metrics = MetricsLogger(
+            config.get("paths.log_dir", out_dir / "logs"),
+            backend=config.get("system.log_metrics", "csv"),
+            wandb_project=config.get("system.wandb_project"),
+            run_name=config.get("system.run_name"))
+        self.memory = MemoryTracker(self.device)
+        self.thermal = ThermalMonitor(
+            threshold_c=float(config.get("system.thermal_threshold", 80.0)))
+        self.profiler = StepProfiler.from_config(config)
+        self.early_stopping = EarlyStopping(
+            patience=int(tcfg.get("patience", 10000)),
+            min_delta=float(tcfg.get("min_delta", 0.001)))
+        self.best_val_score = float("inf")
+        self._best_ckpt: Optional[CheckpointManager] = None
+
+        self._host_rng = np.random.default_rng(self.seed + 2)
+        self.step = 0
+        self._blowups = 0
+        self._blowup_limit = int(tcfg.get("max_loss_blowups", 3))
+        # host snapshot that an OOM mid-update and a loss blow-up restore;
+        # refreshed at every checkpoint save and at restore
+        self._oom_snapshot = self._snapshot()
+        self._updating = False  # an update of this step has begun
+        self.validate_quality = bool(tcfg.get("validate_quality", True))
+        # weight on (1 - full-utterance STOI) in the validation gate
+        self.gate_stoi_weight = float(tcfg.get("gate_stoi_weight", 4.0))
+        self.quality_utterances = int(tcfg.get("quality_utterances", 16))
+        self.generate_samples_every = int(config.get(
+            "system.generate_samples_every", 0))
+        self._sample_validator = None
+        self._bm_cache: Dict = {}
+
+    # -- state -------------------------------------------------------------
+    def _eval_params(self) -> Dict[str, torch.Tensor]:
+        """The generator weights that validation, the gate and ``best/``
+        score: the EMA shadow when on, else the live weights."""
+        params = self.ema if self.ema is not None else self.g_params
+        return {n: p.detach() for n, p in zip(self.g_names, params)}
+
+    def _host_state(self) -> Dict[str, Any]:
+        state = {"generator": _to_host(self.model.state_dict()),
+                 "g_opt_state": _to_host(self.g_opt.state_dict()),
+                 "discriminator": _to_host(self.discriminator.state_dict()),
+                 "d_opt_state": _to_host(self.d_opt.state_dict()),
+                 "step": self.step}
+        if self.ema is not None:
+            state["generator_ema"] = _to_host(dict(zip(self.g_names,
+                                                       self.ema)))
+        return state
+
+    @torch.no_grad()
+    def _load_state(self, state: Dict[str, Any],
+                    ema: Optional[Dict[str, torch.Tensor]]) -> None:
+        self.model.load_state_dict(state["generator"])
+        self.g_opt.load_state_dict(state["g_opt_state"])
+        self.discriminator.load_state_dict(state["discriminator"])
+        self.d_opt.load_state_dict(state["d_opt_state"])
+        if self.ema is not None:
+            for n, e in zip(self.g_names, self.ema):
+                e.copy_(ema[n])
+
+    def _snapshot(self) -> Tuple:
+        return (self._host_state(), self.step, self.g_updates,
+                self.d_updates)
+
+    def _restore_snapshot(self, snap: Tuple) -> None:
+        state, self.step, self.g_updates, self.d_updates = snap
+        self._load_state(state, state.get("generator_ema"))
+
+    def _clear_cache(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _recover_after_blowup(self) -> None:
+        """Rewind to the last finite snapshot after non-finite losses.
+
+        The data stream is not rewound and the blow-up count enters every
+        noise seed, so the replayed window sees other batches and other
+        noise. Raises after ``training.max_loss_blowups`` rewinds."""
+        self._blowups += 1
+        blown_step = self.step
+        # restore before the limit check: when the raise fires, train()'s
+        # finally-save must persist the last finite snapshot
+        self._restore_snapshot(self._oom_snapshot)
+        if self._blowups > self._blowup_limit:
+            raise RuntimeError(
+                f"non-finite losses at step {blown_step} — "
+                f"{self._blowups - 1} rewinds already spent; lower the "
+                "learning rate or raise training.max_loss_blowups")
+        logger.error(
+            "Non-finite losses at step %d — rewinding to snapshot step %d "
+            "(blow-up %d/%d)", blown_step, self.step, self._blowups,
+            self._blowup_limit)
+
+    # -- forward pieces ----------------------------------------------------
+    def _noise_seed(self, step: int, stream: int) -> int:
+        return int(np.random.SeedSequence(
+            [self.seed + 3, int(step), self._blowups, stream]
+        ).generate_state(1)[0])
+
+    def _cast(self, params: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        return cast_params_bf16(params) if self.bf16 else params
+
+    def _acoustic_and_segment(self, g_params: Dict[str, torch.Tensor],
+                              batch: Dict[str, torch.Tensor]):
+        """Teacher-forced text→mel, the target window of each row sliced
+        out, vocoded: (outputs, mel [B, T, C] f32, audio [B, S·U] f32)."""
+        p = self._cast(g_params)
+        out = torch.func.functional_call(
+            self.model, p, (batch["phoneme_ids"], batch["text_lengths"],
+                            batch["durations"]),
+            {"max_frames": batch["mel"].shape[1]})
+        mel_pred = out["mel_output"]
+        B, T, C = mel_pred.shape
+        # the window start clamped to fit, as lax.dynamic_slice clamps it
+        start = batch["frame_offsets"].long().clamp(
+            0, max(T - self.seg_frames, 0))
+        rows = start[:, None] + torch.arange(self.seg_frames,
+                                             device=start.device)
+        mel_seg = torch.gather(mel_pred, 1, rows[..., None].expand(-1, -1, C))
+        vocoder = {k[len("vocoder."):]: v for k, v in p.items()
+                   if k.startswith("vocoder.")}
+        audio = torch.func.functional_call(self.model.vocoder, vocoder,
+                                           (mel_seg,))[..., 0]
+        return out, _f32(mel_pred), _f32(audio)
+
+    def _disc_apply(self, d_params: Dict[str, torch.Tensor],
+                    audio: torch.Tensor, features: bool = True):
+        """The discriminator under the compute-dtype policy: bf16 weights
+        and input when ``bf16``, logits and features upcast to f32. Without
+        ``features`` only the logits are returned (no f32 copies of the
+        feature maps, which the discriminator's loss does not read)."""
+        if self.bf16:
+            audio = audio.to(torch.bfloat16)
+        logits, feats = torch.func.functional_call(
+            self.discriminator, self._cast(d_params), (audio,))
+        logits = [_f32(l) for l in logits]
+        if not features:
+            return logits
+        return logits, [[_f32(f) for f in fs] for fs in feats]
+
+    def _d_loss_and_grads(self, batch: Dict[str, torch.Tensor], seed: int):
+        """LSGAN discriminator loss over ``[real; fake]`` in one apply and
+        its gradient over the discriminator's parameters. The fake comes
+        from a train-mode generator forward with the step's dropout."""
+        with torch.no_grad():
+            self._noise.manual_seed(seed)
+            _, _, fake = self._acoustic_and_segment(
+                dict(zip(self.g_names, self.g_params)), batch)
+        B = fake.shape[0]
+        d_params = dict(zip(self.d_names, self.d_params))
+        logits = self._disc_apply(
+            d_params, torch.cat([batch["audio_seg"], fake]), features=False)
+        d_loss = L.lsgan_discriminator_loss([l[:B] for l in logits],
+                                            [l[B:] for l in logits])
+        grads = torch.autograd.grad(d_loss, self.d_params,
+                                    materialize_grads=True)
+        return d_loss.detach(), grads
+
+    def _g_losses(self, g_params: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], seed: int,
+                  d_loss: Optional[torch.Tensor] = None):
+        """(total, losses) of the generator against the current
+        discriminator (its weights detached)."""
+        self._noise.manual_seed(seed)
+        out, mel_pred, audio_pred = self._acoustic_and_segment(g_params, batch)
+        target = batch["audio_seg"]
+        sr = self._effective_sample_rate()
+        losses = {
+            "mel_loss": L.masked_mel_l1(mel_pred, batch["mel"],
+                                        batch["mel_lengths"]),
+            "duration_loss": L.duration_mse(_f32(out["duration_pred"]),
+                                            batch["durations"]),
+            "spectral_loss": L.multi_resolution_stft_loss(
+                audio_pred, target, phase_weight=self.stft_phase_weight),
+            "perceptual_loss": L.perceptual_loss(audio_pred, target,
+                                                 sample_rate=sr,
+                                                 n_mels=self.n_mels),
+        }
+        if self.weights["envelope_weight"] > 0:
+            losses["envelope_loss"] = L.envelope_correlation_loss(
+                audio_pred, target, sample_rate=sr)
+        d_params = {n: p.detach() for n, p in zip(self.d_names,
+                                                   self.d_params)}
+        # the fake half needs the backward; the real half is data, so its
+        # features are constants and run forward only
+        fake_logits, fake_feats = self._disc_apply(d_params, audio_pred)
+        with torch.no_grad():
+            _, real_feats = self._disc_apply(d_params, target)
+        losses["generator_loss"] = L.lsgan_generator_loss(fake_logits)
+        losses["feature_matching_loss"] = L.feature_matching_loss(
+            real_feats, fake_feats)
+        weights = dict(self.weights)
+        if self.adv_warmup > 0:
+            # the logged losses stay un-ramped; only the total is scheduled
+            ramp = min(max(self.g_updates / self.adv_warmup, 0.0), 1.0)
+            weights["adversarial_weight"] *= ramp
+            weights["feature_matching_weight"] *= ramp
+        if self.adaptive_adv_floor > 0 and d_loss is not None:
+            # a won discriminator (d_loss → 0) feeds saturated-logit
+            # gradients to G: scale the adversarial weight (not FM) by how
+            # balanced the game is, from this batch's d_loss
+            guard = torch.clamp(d_loss / self.adaptive_adv_floor, 0.0, 1.0)
+            weights["adversarial_weight"] = (
+                weights["adversarial_weight"] * guard)
+            losses["adv_guard"] = guard
+        total = L.combined_generator_loss(losses, **weights)
+        losses["total_loss"] = total
+        return total, losses
+
+    def _g_loss_and_grads(self, batch: Dict[str, torch.Tensor], seed: int,
+                          d_loss: Optional[torch.Tensor] = None):
+        total, losses = self._g_losses(dict(zip(self.g_names, self.g_params)),
+                                       batch, seed, d_loss)
+        grads = torch.autograd.grad(total, self.g_params,
+                                    materialize_grads=True)
+        return {k: v.detach() for k, v in losses.items()}, grads
+
+    def _d_update(self, grads: Sequence[torch.Tensor],
+                  d_loss: torch.Tensor) -> None:
+        guard = None
+        if self.adaptive_d_lr_floor > 0:
+            # a saturated discriminator slows its own update: Adam
+            # normalises a gradient's scale away, so the update is scaled
+            guard = torch.clamp(d_loss / self.adaptive_d_lr_floor, 0.0, 1.0)
+        self._updating = True
+        self.d_opt.update(grads, scale=guard)
+        self.d_updates += 1
+
+    @torch.no_grad()
+    def _g_update(self, grads: Sequence[torch.Tensor]) -> None:
+        self._updating = True
+        self.g_opt.update(grads)
+        self.g_updates += 1
+        if self.ema is not None:
+            torch._foreach_mul_(self.ema, self.ema_decay)
+            torch._foreach_add_(self.ema, self.g_params,
+                                alpha=1.0 - self.ema_decay)
+
+    def _slice_batch(self, batch: Dict[str, torch.Tensor], step: int
+                     ) -> Dict[str, torch.Tensor]:
+        """A random window per row of the device-resident full waveform
+        (at the vocoder's rate, ``upsample`` samples a frame): offsets in
+        [0, max(mel_len - seg_frames, 0)], drawn on the device."""
+        self._offsets.manual_seed(self._noise_seed(step, _OFFSETS))
+        mel_len = batch["mel_lengths"]
+        max_off = torch.clamp(mel_len - self.seg_frames, min=0)
+        u = torch.rand(mel_len.shape, generator=self._offsets,
+                       device=mel_len.device)
+        offsets = torch.floor(u * (max_off + 1).float()).to(torch.int32)
+        audio = _f32(batch["audio"])
+        S = self.seg_frames * self.upsample
+        start = (offsets.long() * self.upsample).clamp(
+            max=audio.shape[1] - S)
+        cols = start[:, None] + torch.arange(S, device=start.device)
+        out = {k: v for k, v in batch.items() if k != "audio"}
+        out["frame_offsets"] = offsets
+        out["audio_seg"] = torch.gather(audio, 1, cols)
+        return out
+
+    # -- steps -------------------------------------------------------------
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One GAN step on a device batch (or a host batch, prepared and
+        copied here). Returns the losses as device scalars; nothing waits
+        for the device."""
+        if isinstance(batch.get("mel"), np.ndarray):
+            batch = self._transfer.transfer(
+                batch if "audio_seg" in batch else self._prepare(batch))
+        batch = _upcast(batch)
+        if "audio" in batch:  # device-cached: the window is cut here
+            batch = self._slice_batch(batch, self.step)
+        seed = self._noise_seed(self.step, _DROPOUT)
+        metrics: Dict[str, torch.Tensor] = {}
+        if not self.alternate_gd or self.step % 2 == 0:
+            d_loss, grads = self._d_loss_and_grads(batch, seed)
+            self._d_update(grads, d_loss)
+            metrics["discriminator_loss"] = d_loss
+        if not self.alternate_gd or self.step % 2 == 1:
+            losses, grads = self._g_loss_and_grads(
+                batch, seed, metrics.get("discriminator_loss"))
+            self._g_update(grads)
+            metrics.update(losses)
+        self.step += 1
+        return metrics
+
+    def _guarded_step(self, batch) -> Optional[Dict[str, torch.Tensor]]:
+        """One step; None after an out-of-memory error, recovered: the step
+        is dropped, and when an update had begun the last host snapshot is
+        restored."""
+        self._updating = False
+        try:
+            return self.train_step(batch)
+        except torch.cuda.OutOfMemoryError:
+            self._clear_cache()
+            if self._updating:
+                logger.error("OOM in an update at step %d — restoring the "
+                             "last snapshot (step %d)", self.step,
+                             self._oom_snapshot[1])
+                self._restore_snapshot(self._oom_snapshot)
+            else:
+                logger.error("OOM at step %d before any update; step "
+                             "dropped", self.step)
+            return None
+
+    # -- data --------------------------------------------------------------
+    def _prepare(self, batch: Dict[str, np.ndarray],
+                 rng: Optional[np.random.Generator] = None,
+                 return_targets: bool = False):
+        """Host batch → host batch with ``frame_offsets`` and
+        ``audio_seg`` in place of ``audio``. ``rng`` defaults to the
+        training segment stream; validation passes its own."""
+        offsets, targets = _segment_audio(
+            batch["audio"], batch["mel_lengths"], self.seg_frames, self.hop,
+            self.upsample, rng if rng is not None else self._host_rng)
+        host = {k: v for k, v in batch.items() if k != "audio"}
+        host["frame_offsets"] = offsets
+        host["audio_seg"] = targets
+        return (host, targets) if return_targets else host
+
+    def _stage_audio(self, audio: np.ndarray, frames_bucket: int
+                     ) -> np.ndarray:
+        """Host, once per staged batch: full waveforms at the vocoder's
+        effective rate, ``frames_bucket * upsample`` samples long."""
+        want = frames_bucket * self.upsample
+        if self.upsample != self.hop:
+            from math import gcd
+
+            from scipy.signal import resample_poly
+
+            g = gcd(self.upsample, self.hop)
+            audio = np.stack([
+                resample_poly(row, self.upsample // g, self.hop // g)
+                .astype(np.float32) for row in audio])
+        out = np.zeros((audio.shape[0], want), np.float32)
+        n = min(want, audio.shape[1])
+        out[:, :n] = audio[:, :n]
+        return out
+
+    def _device_cached_iterator(self):
+        """Infinite iterator over device-resident batches carrying whole
+        waveforms (one copy each, ever), reshuffled each epoch; None when
+        the staged bytes would exceed the budget."""
+        from m2tts_tpu_torch.data.device_cache import (epoch_shuffled,
+                                                       stage_on_device)
+
+        def put(b):
+            b = dict(b, audio=self._stage_audio(b["audio"], b["mel"].shape[1]))
+            return self._transfer.transfer(b)
+
+        staged = stage_on_device(
+            make_batches(self.dataset, self.batch_size, self.buckets,
+                         seed=self.seed, shuffle=True, drop_last=False,
+                         audio_samples=self._max_audio_samples()),
+            put, self.device_cache_max_gb * 1e9)
+        return epoch_shuffled(staged, self.seed + 17) if staged else None
+
+    def _max_audio_samples(self) -> int:
+        return max(m for _, m in self.buckets) * self.hop
+
+    def _effective_sample_rate(self) -> int:
+        """The vocoder's output rate: data.sample_rate scaled by
+        upsample / hop."""
+        sr = int(self.config.get("data.sample_rate", 22050))
+        return int(sr * self.upsample / self.hop)
+
+    # -- loop --------------------------------------------------------------
+    def train(self, resume: bool = False) -> Dict[str, float]:
+        if resume and self.ckpt.latest_step() is not None:
+            self.restore()
+        it = self._device_cached_iterator() if self.device_data_cache else None
+        if it is None:
+            source = data_iterator(self.dataset, self.batch_size,
+                                   self.buckets, seed=self.seed,
+                                   audio_samples=self._max_audio_samples())
+            depth = int(self.config.get("data.prefetch", 2))
+            it = (DevicePrefetcher(
+                source, lambda b: self._transfer.put(self._prepare(b)),
+                depth, ready_fn=self._transfer.ready) if depth > 0
+                else map(lambda b: self._transfer.transfer(self._prepare(b)),
+                         source))
+        last: Dict[str, float] = {}
+        t_last = time.perf_counter()
+        try:
+            while self.step < self.max_steps:
+                if not self.thermal.check():
+                    self.thermal.wait_for_cooldown()
+                batch = next(it)
+                with self.profiler.step(self.step):
+                    metrics = self._guarded_step(batch)
+                if metrics is None:
+                    continue
+                if self.step % self.log_every == 0:
+                    # the one host read of the interval
+                    values = dict(zip(metrics, torch.stack(
+                        list(metrics.values())).tolist()))
+                    if not all(math.isfinite(v) for v in values.values()):
+                        self._recover_after_blowup()
+                        t_last = time.perf_counter()
+                        continue
+                    now = time.perf_counter()
+                    values["steps_per_sec"] = self.log_every / (now - t_last)
+                    t_last = now
+                    values.update(self.memory.update())
+                    self.metrics.log(values, self.step)
+                    logger.info("step %d: %s", self.step,
+                                {k: round(v, 4) for k, v in values.items()})
+                    last = values
+                ran_quality_pass = False
+                if self.step % self.validate_every == 0:
+                    val = self.validate()
+                    ran_quality_pass = self.validate_quality
+                    self.metrics.log({f"val_{k}": v for k, v in val.items()},
+                                     self.step)
+                    score = val.get(self._gate_metric_name())
+                    if score is not None:
+                        if score < self.best_val_score:
+                            self.best_val_score = score
+                            self.save_best_checkpoint(score)
+                        if self.early_stopping(score):
+                            logger.info("Early stopping at step %d",
+                                        self.step)
+                            break
+                if (self.generate_samples_every
+                        and self.step % self.generate_samples_every == 0
+                        and not ran_quality_pass):
+                    self.sample_validator.run(self._eval_params(), self.step)
+                if self.step % self.save_every == 0:
+                    self.save_checkpoint()
+        except KeyboardInterrupt:
+            logger.info("Interrupted at step %d — saving", self.step)
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+            self.profiler.close(self.step - 1)
+            self.save_checkpoint()
+            self.metrics.close()
+        return last
+
+    # -- validation --------------------------------------------------------
+    @torch.no_grad()
+    def _val_fwd(self, batch: Dict[str, torch.Tensor]):
+        """Teacher-forced eval-mode forward of the scored weights: (mel
+        loss, MR-STFT loss at its default phase weight, mel, audio)."""
+        batch = _upcast(batch)
+        self.model.eval()
+        try:
+            _, mel_pred, audio_pred = self._acoustic_and_segment(
+                self._eval_params(), batch)
+        finally:
+            self.model.train()
+        mel_loss = L.masked_mel_l1(mel_pred, batch["mel"],
+                                   batch["mel_lengths"])
+        spec_loss = L.multi_resolution_stft_loss(audio_pred,
+                                                 batch["audio_seg"])
+        return mel_loss, spec_loss, mel_pred, audio_pred
+
+    def validate(self, n_batches: int = 2) -> Dict[str, float]:
+        """Losses and the quality composite on held-out batches, and with
+        ``validate_quality`` the evaluator sweep, full-utterance STOI/LSD
+        (``utt_`` keys) and the sample validator. Deterministic: segments
+        come from a fresh ``default_rng(seed + 7777)``, so validating
+        neither jitters the metric nor advances the training stream.
+
+        ``quality_score`` = segment MCD + spectral convergence;
+        ``quality_score_audio`` adds ``gate_stoi_weight · (1 − utt_stoi)``.
+        """
+        from m2tts_tpu_torch.evaluation.metrics import (
+            compute_mcd, compute_spectral_convergence)
+        from m2tts_tpu_torch.evaluation.stoi import compute_stoi
+
+        it = make_batches(self.dataset, self.batch_size, self.buckets,
+                          seed=0, shuffle=False, drop_last=False,
+                          audio_samples=self._max_audio_samples())
+        val_rng = np.random.default_rng(self.seed + 7777)
+        totals: Dict[str, float] = {}
+        mcds: list = []
+        sconvs: list = []
+        stois: list = []
+        count = 0
+        sr = self._effective_sample_rate()
+        for batch in it:
+            n_valid = int(batch.get("n_valid", batch["mel"].shape[0]))
+            host, seg_targets = self._prepare(batch, rng=val_rng,
+                                              return_targets=True)
+            mel_loss, spec_loss, mel_pred, audio_pred = self._val_fwd(
+                self._transfer.transfer(host))
+            mel_loss, spec_loss = torch.stack([mel_loss, spec_loss]).tolist()
+            mel_pred_h = mel_pred.cpu().numpy()
+            audio_pred_h = audio_pred.cpu().numpy()
+            totals["mel_loss"] = totals.get("mel_loss", 0.0) + mel_loss
+            totals["spectral_loss"] = totals.get(
+                "spectral_loss", 0.0) + spec_loss
+            for i in range(n_valid):  # duplicates of padded batches excluded
+                n = int(batch["mel_lengths"][i])
+                if n > 0:
+                    mcds.append(compute_mcd(mel_pred_h[i, :n].T,
+                                            batch["mel"][i, :n].T))
+                sconvs.append(compute_spectral_convergence(
+                    audio_pred_h[i], seg_targets[i]))
+                s = compute_stoi(seg_targets[i], audio_pred_h[i], sr)
+                if np.isfinite(s):
+                    stois.append(s)
+            count += 1
+            if count >= n_batches:
+                break
+        out = {k: v / max(count, 1) for k, v in totals.items()}
+        if mcds:
+            out["mcd"] = float(np.mean(mcds))
+        if sconvs:
+            out["spectral_convergence"] = float(np.mean(sconvs))
+        if stois:
+            out["stoi"] = float(np.mean(stois))
+        if mcds or sconvs:
+            out["quality_score"] = (out.get("mcd", 0.0)
+                                    + out.get("spectral_convergence", 0.0))
+        if self.validate_quality:
+            out.update(self._quality_metrics(n_batches))
+            if (self.gate_stoi_weight > 0 and "utt_stoi" in out
+                    and "quality_score" in out):
+                out["quality_score_audio"] = (
+                    out["quality_score"]
+                    + self.gate_stoi_weight * (1.0 - out["utt_stoi"]))
+        return out
+
+    def _quality_metrics(self, n_batches: int) -> Dict[str, float]:
+        """Evaluator sweep, full-utterance teacher-forced audio metrics
+        (STOI, LSD, spectral convergence; ``utt_`` keys) and the eval-text
+        samples with their MOS, all on the scored weights."""
+        from m2tts_tpu_torch.evaluation.metrics import (
+            benchmark_audio_quality, benchmark_model_performance)
+
+        out: Dict[str, float] = {}
+        sr = int(self.config.get("data.sample_rate", 22050))
+        params = self._eval_params()
+        try:
+            batches = make_batches(self.dataset, self.batch_size,
+                                   self.buckets, seed=0, shuffle=False,
+                                   drop_last=False)
+            out.update(benchmark_model_performance(
+                self.model, params, batches,
+                num_samples=self.batch_size * n_batches,
+                sample_rate=sr, _fn_cache=self._bm_cache))
+        except Exception:  # a failed sweep must not stop training
+            logger.warning("benchmark_model_performance failed",
+                           exc_info=True)
+        try:
+            batches = make_batches(self.dataset, self.batch_size,
+                                   self.buckets, seed=0, shuffle=False,
+                                   drop_last=False,
+                                   audio_samples=self._max_audio_samples())
+            aq = benchmark_audio_quality(
+                self.model, params, batches,
+                num_samples=self.quality_utterances, sample_rate=sr,
+                hop_length=self.hop, _fn_cache=self._bm_cache)
+            out.update({k: v for k, v in {
+                "utt_stoi": aq.get("stoi"),
+                "utt_lsd": aq.get("log_spectral_distance"),
+                "utt_spectral_convergence": aq.get("spectral_convergence"),
+            }.items() if v is not None})
+        except Exception:  # a failed pass skips the gate this round
+            logger.warning("benchmark_audio_quality failed", exc_info=True)
+        out.update(self.sample_validator.run(params, self.step))
+        return out
+
+    @property
+    def sample_validator(self):
+        if self._sample_validator is None:
+            from m2tts_tpu_torch.training.validation import \
+                validator_from_config
+
+            self._sample_validator = validator_from_config(
+                self.config, build_model(self.config.get("model", Config())),
+                stage=2, device=self.device)
+        return self._sample_validator
+
+    def _gate_metric_name(self) -> str:
+        """The validate() key that drives early stopping and ``best/``."""
+        if not self.validate_quality:
+            return "mel_loss"
+        return ("quality_score_audio" if self.gate_stoi_weight > 0
+                else "quality_score")
+
+    # -- checkpoints -------------------------------------------------------
+    def save_checkpoint(self) -> None:
+        if self.step == 0:
+            return
+        state = self._host_state()
+        # a blow-up between log steps must never reach the latest
+        # checkpoint or the rewind snapshot
+        if not tree_finite((state["generator"], state["discriminator"])):
+            logger.error("Refusing to checkpoint non-finite params at step "
+                         "%d (blow-up not yet detected)", self.step)
+            return
+        self._oom_snapshot = (state, self.step, self.g_updates,
+                              self.d_updates)
+        self.ckpt.save(self.step, state, config=self.config)
+
+    def save_best_checkpoint(self, score: float) -> None:
+        """Pin the current state under ``<ckpt_dir>/best``: the raw
+        generator with its own optimizer state (so a resume never pairs
+        EMA weights with raw Adam moments) and the EMA, which the gate
+        scored and ``from_checkpoint(dir, step="best")`` serves."""
+        if self._best_ckpt is None:
+            self._best_ckpt = CheckpointManager(
+                self.ckpt.directory / "best", max_to_keep=1)
+        self._best_ckpt.save(self.step, self._host_state(),
+                             config=self.config,
+                             metrics={"val_score": float(score)})
+        _write_best_score(self.ckpt.directory, self.step, score,
+                          metric=self._gate_metric_name())
+        logger.info("New best validation score %.6f at step %d", score,
+                    self.step)
+
+    def restore(self) -> None:
+        """Resume the latest checkpoint: both nets, both optimizers, the
+        step, the EMA and the best score with its metric. A checkpoint
+        whose stored keys lack ``generator_ema`` (written with EMA off), or
+        whose keys cannot be read, seeds the EMA from the restored
+        generator; a checkpoint that cannot be loaded raises."""
+        stored = self.ckpt.state_keys()
+        state, _, step = self.ckpt.restore()
+        ema = None
+        if self.ema is not None:
+            if stored is not None and "generator_ema" in stored:
+                ema = state["generator_ema"]
+            else:
+                logger.warning(
+                    "Checkpoint step %d: %s — the EMA starts from the "
+                    "restored generator", step,
+                    "its keys could not be read, so it is restored without "
+                    "generator_ema" if stored is None
+                    else "no generator_ema (written with EMA off)")
+                ema = state["generator"]
+        self._load_state(state, ema)
+        # as the JAX package's restore sets each TrainState.step
+        self.step = self.g_updates = self.d_updates = step
+        self._oom_snapshot = self._snapshot()
+        self.best_val_score = _read_best_score(
+            self.ckpt.directory, self.best_val_score,
+            metric=self._gate_metric_name())
+        logger.info("Resumed stage-2 from step %d", step)
+
+    def close(self):
+        self.ckpt.close()
+        if self._best_ckpt is not None:
+            self._best_ckpt.close()
+        self.metrics.close()

@@ -76,6 +76,23 @@ class CheckpointManager:
                   if (d / CONFIG_FILE).exists() else None)
         return state, config, int(step)
 
+    def state_keys(self, step: Optional[int] = None) -> Optional[List[str]]:
+        """Top-level keys of the stored state of ``step`` (the latest when
+        None), or None when there is no such checkpoint or its file cannot
+        be read that way. The file is memory-mapped, so no tensor is read
+        into memory."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                return None
+        try:
+            state = torch.load(self.directory / str(int(step)) / STATE_FILE,
+                               map_location="cpu", weights_only=True,
+                               mmap=True)
+        except Exception:  # unreadable for any reason: the caller decides
+            return None
+        return list(state) if isinstance(state, dict) else None
+
     def all_steps(self) -> List[int]:
         return sorted(int(p.name) for p in self.directory.iterdir()
                       if p.name.isdigit() and (p / STATE_FILE).exists())

@@ -78,6 +78,61 @@ FLAGSHIP_XL_TRAINING: Dict[str, Any] = {
     "data": FLAGSHIP_TRAINING["data"],
 }
 
+# The ``training:``, ``data:`` and ``system:`` sections of
+# configs/stage2_quality.yaml (GAN training; its ``model:`` section is
+# ``FLAGSHIP_MODEL``), so the stage-2 CLI trains without a YAML parser.
+STAGE2_TRAINING: Dict[str, Any] = {
+    "training": {
+        "batch_size": 32, "gradient_accumulation_steps": 1,
+        "max_steps": 50000, "learning_rate": 2.0e-5, "weight_decay": 1.0e-6,
+        "warmup_steps": 300, "lr_scheduler": "cosine",
+        "gradient_clip_norm": 1.0, "bf16": True, "adam_b1": 0.8,
+        "adam_b2": 0.99, "mel_loss_weight": 1.0, "duration_loss_weight": 0.1,
+        "adversarial_loss_weight": 0.05,
+        "discriminator_spectral_norm": True,
+        "feature_matching_weight": 0.5, "spectral_loss_weight": 1.0,
+        "perceptual_loss_weight": 0.5, "adversarial_warmup_steps": 600,
+        "gate_stoi_weight": 4.0, "quality_utterances": 16,
+        "envelope_loss_weight": 4.0, "stft_phase_weight": 0.0,
+        "ema_decay": 0.995, "audio_segment_len": 32768,
+        "save_every": 2000, "validate_every": 1000, "max_checkpoints": 10,
+        "patience": 10000, "min_delta": 0.001, "log_every": 100,
+        "seed": 1234,
+    },
+    "data": {**FLAGSHIP_TRAINING["data"], "subset_size": None},
+    "system": {
+        "mesh": {"data": -1, "model": 1}, "log_metrics": "csv",
+        "profile": {"start_step": 0, "num_steps": 5,
+                    "log_dir": "outputs/profile"},
+        "generate_samples_every": 5000,
+        "eval_texts": [
+            "Hello world, this is a test of the improved model.",
+            "The quick brown fox jumps over the lazy dog.",
+            "M2 TTS generates high quality speech synthesis.",
+            "This model runs efficiently on Apple Silicon hardware."],
+    },
+}
+
+# configs/stage2_xl_quality.yaml: the XL generator (its ``model:`` section
+# is configs/flagship_xl.yaml's) and the stage-2 recipe with both adaptive
+# guards on and the data staged on the device.
+STAGE2_XL_MODEL: Dict[str, Any] = FLAGSHIP_XL_MODEL
+STAGE2_XL_TRAINING: Dict[str, Any] = {
+    "training": {
+        **STAGE2_TRAINING["training"],
+        "device_data_cache": True, "adaptive_adv_dloss_floor": 0.15,
+        "adaptive_d_lr_floor": 0.15, "init_generator_from": None,
+        "max_loss_blowups": 3,
+    },
+    "data": {**STAGE2_TRAINING["data"],
+             "data_dir": "data/synthetic-v3-1000"},
+    "system": {
+        "mesh": {"data": -1, "model": 1}, "log_metrics": "csv",
+        "generate_samples_every": 0,
+        "eval_texts": STAGE2_TRAINING["system"]["eval_texts"][:2],
+    },
+}
+
 
 def _parse_value(raw: str) -> Any:
     """An override's value: YAML when PyYAML is installed, else a JSON

@@ -7,8 +7,11 @@ backend, and the streaming path on the kernels (streamed against the kernel
 run whole, the short path on the f32 kernel, the ``StreamBatcher`` against
 solo streams), stage-1 training on the card (one f32 step against the
 same step on the CPU with TF32 off, the prefetcher's side-stream copies
-bit-equal to their host batches, the device cache) and a reference ``.pt``
-served through ``auto``. They skip without a card. This file imports no JAX, so on the card it runs without the test
+bit-equal to their host batches, the device cache), a reference ``.pt``
+served through ``auto``, and stage 2 on the card (the multi-scale
+discriminator's forward and input/weight gradients against the CPU in
+f32 and in f64, and one fused GAN step against the CPU in f32, TF32 off).
+They skip without a card. This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -17,7 +20,10 @@ Tolerances: f32 atol 3e-5 / rtol 1e-4; bf16 kernel against the bf16 plain
 version (same rounding points, other summation order) max abs 2e-2; PCM
 within ±1 LSB in f32, within the bf16 bar scaled to LSB in bf16; a train
 step on the card against the CPU (f32, TF32 off): losses rtol 1e-5,
-gradients atol 1e-6 + rtol 1e-4, params after 3 updates atol 1e-6.
+gradients atol 1e-6 + rtol 1e-4, params after 3 updates atol 1e-6; the
+discriminator's outputs and gradients within 1e-4 of each tensor's largest
+value, of the CPU's f32 and of f64 (``DISC_F64_REL``); a GAN step's losses
+rtol 1e-5 and its params within lr/10.
 """
 
 import itertools
@@ -30,6 +36,7 @@ import torch
 from m2tts_tpu_torch.data.dataset import (DummyDataset, data_iterator,
                                           make_batches)
 from m2tts_tpu_torch.data.prefetch import BatchTransfer, DevicePrefetcher
+from m2tts_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from m2tts_tpu_torch.models.tts_model import M2TTS, Vocoder, init_params
 from m2tts_tpu_torch.ops import vocoder_mm as tmm
 from m2tts_tpu_torch.ops.cuda import build
@@ -40,6 +47,7 @@ from m2tts_tpu_torch.serving.stream_batcher import StreamBatcher
 from m2tts_tpu_torch.serving.streaming import (StreamingSynthesizer,
                                                StreamingVocoder)
 from m2tts_tpu_torch.training.trainer import Stage1Trainer
+from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.params import to_flax
 from m2tts_tpu_torch.utils.torch_compat import reference_state_dict
@@ -374,3 +382,80 @@ def test_from_torch_checkpoint_on_cuda_runs_the_kernel(tmp_path):
         assert a["frames"] == b["frames"] > 0
         assert np.abs(a["audio_pcm"].astype(np.int32)
                       - b["audio_pcm"]).max(initial=0) <= lsb
+
+
+# cuDNN's f32 reductions over time in the discriminator's weight gradients
+# land up to 2.6e-5 (of the tensor's largest value) from f64 on an H100,
+# and 2.7e-5 from the CPU's f32 (the CPU's f32: 1.5e-6 from f64)
+DISC_F64_REL = 1e-4
+
+
+def _rel_max(got, want):
+    return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+
+@needs_cuda
+def test_discriminator_on_cuda_matches_cpu(no_tf32):
+    """Logits, the 18 feature maps, the input gradient and every weight
+    gradient of the spectral-normed discriminator on the card, held against
+    the same computation on the CPU in f32 and in f64."""
+    d = init_params(MultiScaleDiscriminator(spectral_norm=True),
+                    torch.Generator().manual_seed(0), "cpu")
+    dg = MultiScaleDiscriminator(spectral_norm=True).cuda()
+    dg.load_state_dict(d.state_dict())
+    x = torch.randn((2, 4102), generator=torch.Generator().manual_seed(1))
+
+    def run(net, xi):
+        xi = xi.requires_grad_(True)
+        logits, feats = net(xi)
+        scalar = (sum((l ** 2).sum() for l in logits)
+                  + sum(f.abs().mean() for fs in feats for f in fs))
+        grads = torch.autograd.grad(scalar, [xi, *net.parameters()])
+        return [*logits, *(f for fs in feats for f in fs), *grads]
+
+    card, cpu = run(dg, x.cuda()), run(d, x.clone())
+    f64 = run(d.double(), x.double())
+    assert len(f64) == 3 + 18 + 1 + len(list(d.parameters()))
+    for got, a, b in zip(card, cpu, f64):
+        assert got.is_cuda and got.dtype == torch.float32
+        assert _rel_max(got.double(), b) < DISC_F64_REL
+        assert _rel_max(got, a) < DISC_F64_REL
+
+
+def _stage2_config(tmp_path):
+    cfg = _train_config(tmp_path, audio_segment_len=2048,
+                        discriminator_spectral_norm=True,
+                        envelope_loss_weight=4.0, stft_phase_weight=0.0,
+                        adaptive_adv_dloss_floor=2.0, adaptive_d_lr_floor=2.0,
+                        ema_decay=0.5, lr_scheduler="constant",
+                        warmup_steps=0)
+    cfg.set("data.hop_length", 256)
+    return cfg
+
+
+@needs_cuda
+def test_gan_step_on_cuda_matches_cpu(tmp_path, no_tf32):
+    ds = DummyDataset(**DS_KW, keep_audio=True)
+    tr = {dev: Stage2Trainer(_stage2_config(tmp_path / dev), dataset=ds,
+                             device=dev) for dev in ("cpu", "cuda")}
+    tr["cuda"].model.load_state_dict(tr["cpu"].model.state_dict())
+    tr["cuda"].discriminator.load_state_dict(
+        tr["cpu"].discriminator.state_dict())
+    for e, p in zip(tr["cuda"].ema, tr["cuda"].g_params):
+        e.data.copy_(p)
+    host = next(make_batches(ds, 8, tr["cpu"].buckets, seed=5,
+                             audio_samples=128 * 256))
+    host = tr["cpu"]._prepare(host, np.random.default_rng(5))
+    for _ in range(2):
+        mc, mg = (tr[d].train_step(dict(host)) for d in ("cpu", "cuda"))
+        assert set(mc) == set(mg) and "adv_guard" in mg
+        for k in mc:
+            np.testing.assert_allclose(mg[k].item(), mc[k].item(), rtol=1e-5,
+                                       err_msg=k)
+    for net in ("model", "discriminator"):
+        want = getattr(tr["cpu"], net).state_dict()
+        for k, v in getattr(tr["cuda"], net).state_dict().items():
+            torch.testing.assert_close(v.cpu(), want[k], atol=1e-4, rtol=0,
+                                       msg=f"{net} {k}")
+    for t in tr.values():
+        t.close()

@@ -17,8 +17,9 @@ import torch
 
 from m2tts_tpu_torch.models.tts_model import M2TTS
 from m2tts_tpu_torch.serving import pipeline
-from m2tts_tpu_torch.training import train
+from m2tts_tpu_torch.training import train, train_stage2
 from m2tts_tpu_torch.training.trainer import Stage1Trainer
+from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
 from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, Config
 
 torch.set_num_threads(2)
@@ -64,7 +65,10 @@ def test_no_jax_or_reference_package_imported():
     for name in ("serving.server", "serving.streaming", "serving.batcher",
                  "serving.stream_batcher", "utils.checkpoint",
                  "training.trainer", "training.train", "data.dataset",
-                 "data.prefetch", "utils.torch_compat"):
+                 "data.prefetch", "utils.torch_compat",
+                 "training.trainer_stage2", "training.train_stage2",
+                 "models.discriminator", "ops.stft", "evaluation.stoi",
+                 "evaluation.metrics"):
         assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
@@ -93,6 +97,10 @@ def test_entry_points_default_to_cuda():
         pipeline.from_torch_checkpoint("reference.pt")
     with pytest.raises(RuntimeError):
         train.main(["training.max_steps=1"])  # the CLI's default device
+    with pytest.raises(RuntimeError):
+        Stage2Trainer(Config({"model": FLAGSHIP_MODEL}))
+    with pytest.raises(RuntimeError):
+        train_stage2.main(["training.max_steps=1"])
 
 
 def _run_smoke(cwd: Path):

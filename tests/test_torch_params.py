@@ -1,5 +1,7 @@
 """Weight bridge of the PyTorch port: flax → torch → flax is exact, and the
-port's modules take the converted state dict with no key left over."""
+port's modules take the converted state dict with no key left over. The
+configs the port keeps as data equal their YAML files, and the checkpoint
+manager lists a stored state's keys."""
 
 from pathlib import Path
 
@@ -12,9 +14,12 @@ import torch
 from m2tts_tpu.models import build_model as jax_build_model
 from m2tts_tpu.utils.config import load_config
 from m2tts_tpu_torch.models.tts_model import build_model
+from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
                                           FLAGSHIP_XL_MODEL,
-                                          FLAGSHIP_XL_TRAINING)
+                                          FLAGSHIP_XL_TRAINING,
+                                          STAGE2_TRAINING, STAGE2_XL_MODEL,
+                                          STAGE2_XL_TRAINING)
 from m2tts_tpu_torch.utils.params import from_flax, to_flax
 
 torch.set_num_threads(2)
@@ -90,3 +95,31 @@ def test_training_configs_match_yaml(name, model, training):
     assert cfg.model.to_dict() == model
     assert {"training": cfg.training.to_dict(),
             "data": cfg.data.to_dict()} == training
+
+
+@pytest.mark.parametrize("name,model,training", [
+    ("stage2_quality.yaml", FLAGSHIP_MODEL, STAGE2_TRAINING),
+    ("stage2_xl_quality.yaml", STAGE2_XL_MODEL, STAGE2_XL_TRAINING)],
+    ids=["stage2", "stage2_xl"])
+def test_stage2_configs_match_yaml(name, model, training):
+    cfg = load_config(CONFIGS / name)
+    assert cfg.model.to_dict() == model
+    assert {"training": cfg.training.to_dict(), "data": cfg.data.to_dict(),
+            "system": cfg.system.to_dict()} == training
+
+
+def test_checkpoint_state_keys(tmp_path):
+    """The top-level keys of a written step (the latest by default); None
+    for a missing step, an empty directory and an unreadable file."""
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    assert mgr.state_keys() is None  # no checkpoint yet
+    state = {"generator": {"w": torch.ones(3)}, "step": 4,
+             "generator_ema": {"w": torch.zeros(3)}}
+    mgr.save(4, state, config={"model": {}})
+    mgr.save(6, {"generator": {"w": torch.ones(3)}, "step": 6})
+    assert mgr.state_keys(4) == ["generator", "step", "generator_ema"]
+    assert mgr.state_keys() == ["generator", "step"]
+    assert mgr.state_keys(5) is None
+    (tmp_path / "ckpt/6/state.pt").write_bytes(b"\x00 not a torch file")
+    assert mgr.state_keys(6) is None
+    assert mgr.state_keys(4) == ["generator", "step", "generator_ema"]
