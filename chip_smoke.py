@@ -337,18 +337,19 @@ def packed_eval_texts(synth):
     return packed[:, :-1], packed[:, -1]
 
 
-def calibrate_scale(synth, ids, lengths) -> float:
-    """The duration scale that puts the longest text at ~FRAME_TARGET
-    frames by ``synth``'s duration probe."""
+def calibrate_scale(synth, ids, lengths, target: int = FRAME_TARGET
+                    ) -> float:
+    """The duration scale that puts the longest text at ~``target`` frames
+    by ``synth``'s duration probe."""
     scale = 1.0
     for _ in range(8):  # frames are nonlinear in the scale: iterate
         peak = float(synth.predict_frames(ids, lengths, scale).max())
         if peak <= 0:
             scale *= 64.0
             continue
-        if abs(peak - FRAME_TARGET) / FRAME_TARGET < 0.03:
+        if abs(peak - target) / target < 0.03:
             break
-        scale *= FRAME_TARGET / peak
+        scale *= target / peak
     return scale
 
 
@@ -1424,6 +1425,405 @@ def train_stage2_to_serve_phase(stage2: dict, buckets: dict, card: str,
     return out
 
 
+def run_cli(main_fn, argv) -> str:
+    """``main_fn(argv)`` in this process (it must return 0); its stdout."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise RuntimeError(f"{argv[:2]} returned {rc}")
+    return buf.getvalue()
+
+
+def read_wav(path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path), "rb") as f:
+        return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+
+def as_written(audio: np.ndarray, path) -> np.ndarray:
+    """``audio`` through ``save_wav``, as the CLIs write it, read back."""
+    from m2tts_tpu_torch.frontend.audio import save_wav
+
+    save_wav(audio, path)
+    return read_wav(path)
+
+
+# the synthesize CLI's texts: the longest eval text at ~200 frames, so the
+# long-form line's ~250-phoneme chunks stay inside the default 1024-frame
+# bucket
+CLI_FRAME_TARGET = 200
+LONG_TEXT = " ".join(EVAL_TEXTS * 2)
+
+
+def synthesize_cli_phase(ckdir, out_dir: str, card: str,
+                         counters: Counters) -> dict:
+    """``serving.synthesize.main(argv)`` in this process on the stage-2
+    checkpoint (its EMA), at the CLI's defaults (``auto``: bf16 on
+    ``vocoder_tc.cu``): ``--text``, a ``--batch-file`` of 8 lines, one of
+    them over the phoneme budget (the long-form path), each WAV equal at
+    0 LSB to the in-process Synthesizer's audio written the same way;
+    ``--griffin-lim``, equal at 0 LSB to ``AudioProcessor.mel_to_audio``
+    of the in-process mel; ``--streaming --compute-dtype f32``
+    (``vocoder_tc32.cu``), held as phase 5 holds a stream: against its own
+    mel vocoded whole by the kernel (F32_TOL, plus the quantiser's 1 LSB).
+    The streamed WAV is not the batch path's: the decoder attends over the
+    padding frames of its frame bucket (1000 frames for a stream, the
+    bucket for a batch), in the JAX package as here."""
+    from m2tts_tpu_torch.frontend.audio import AudioProcessor
+    from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
+    from m2tts_tpu_torch.ops.vocoder_mm import pack_vocoder_weights
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.serving import synthesize as cli
+    from m2tts_tpu_torch.serving.streaming import StreamingSynthesizer
+
+    t_phase = time.perf_counter()
+    ref = pipeline.from_checkpoint(ckdir, device="cuda")
+    if (ref.vocoder_backend, ref.compute_dtype) != ("cuda", "bf16"):
+        raise RuntimeError(f"auto resolved to {ref.vocoder_backend}/"
+                           f"{ref.compute_dtype}")
+    ids, lengths = packed_eval_texts(ref)
+    scale = calibrate_scale(ref, ids, lengths, CLI_FRAME_TARGET)
+    base = ["--checkpoint", str(ckdir), "--duration-scale", repr(scale)]
+    lines = EVAL_TEXTS[:4] + [LONG_TEXT] + EVAL_TEXTS[4:7]
+    budget = ref.phoneme_budget() - 2
+    n_phon = [len(ref.text_processor.text_to_phonemes(t)) for t in lines]
+    if sum(n > budget for n in n_phon) != 1:
+        raise RuntimeError(f"batch file phonemes {n_phon}, budget {budget}")
+    bfile = os.path.join(out_dir, "lines.txt")
+    with open(bfile, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    runs, out = {}, {"phase": "synthesize_cli", "card": card,
+                     "duration_scale": scale}
+    counters.zero()
+    for name, args in (
+            ("text", ["--text", EVAL_TEXTS[0]]),
+            ("batch_file", ["--batch-file", bfile]),
+            ("griffin_lim", ["--text", EVAL_TEXTS[1], "--griffin-lim"]),
+            ("streaming", ["--text", EVAL_TEXTS[4], "--streaming",
+                           "--compute-dtype", "f32"])):
+        wav = os.path.join(out_dir, f"{name}.wav")
+        t0 = time.perf_counter()
+        log = run_cli(cli.main, base + args + ["--output", wav])
+        runs[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1 or launches["fused_vocoder_tc32"] < 1:
+        raise RuntimeError(f"synthesize_cli skipped a kernel: {launches}")
+    out["launches"] = launches
+
+    # --text and --batch-file against the in-process Synthesizer, 0 LSB
+    want = {"text": ref.synthesize_batch([EVAL_TEXTS[0]], scale)}
+    want["batch_file"] = ref.synthesize_batch_long(lines, scale)
+    if "long-form: 1/8 text(s)" not in runs["batch_file"]["log"]:
+        raise RuntimeError("the batch file did not take the long-form path")
+    for name, results in want.items():
+        wavs = ([os.path.join(out_dir, "text.wav")] if name == "text" else
+                [os.path.join(out_dir, f"batch_file_{i:03d}.wav")
+                 for i in range(len(lines))])
+        diffs = []
+        for i, (r, w) in enumerate(zip(results, wavs)):
+            if r.get("truncated") or r["frames"] <= 0:
+                raise RuntimeError(f"{name} {i}: frames {r['frames']} "
+                                   f"truncated {r.get('truncated')}")
+            diffs.append(pcm_diff(read_wav(w), as_written(
+                r["audio"], os.path.join(out_dir, "ref.wav")), (0, None),
+                f"synthesize CLI {name} line {i}")["max_pcm_lsb"])
+        out[name] = {"max_pcm_lsb": max(diffs),
+                     "frames": [int(r["frames"]) for r in results],
+                     "seconds": runs[name]["seconds"]}
+    out["batch_file"]["long_form_chunks"] = len(want["batch_file"][4]
+                                                ["chunks"])
+    m = re.search(r"Generated ([\d.]+)s audio in ([\d.]+)s \(RTF ([\d.]+)",
+                  runs["batch_file"]["log"])
+    out["batch_file"].update(audio_s=float(m.group(1)),
+                             synth_s=float(m.group(2)), rtf=float(m.group(3)))
+
+    # --griffin-lim against the in-process mel inverted on the host
+    mel = ref.synthesize(EVAL_TEXTS[1], scale, want_mel=True)["mel"]
+    gl = AudioProcessor(n_mels=mel.shape[-1]).mel_to_audio(mel.T)
+    out["griffin_lim"] = {
+        **pcm_diff(read_wav(os.path.join(out_dir, "griffin_lim.wav")),
+                   as_written(gl, os.path.join(out_dir, "ref.wav")),
+                   (0, None), "synthesize CLI --griffin-lim"),
+        "frames": int(mel.shape[0]), "seconds": runs["griffin_lim"]["seconds"]}
+
+    # --streaming (f32) against its mel vocoded whole by the f32 kernel
+    ss = StreamingSynthesizer(ref.model, compute_dtype="f32", device="cuda")
+    enc = ss.text_processor.batch([EVAL_TEXTS[4]], ss.text_bucket)
+    with torch.inference_mode():
+        smel, total = ss._acoustic(torch.from_numpy(enc["phoneme_ids"]).cuda(),
+                                   torch.from_numpy(enc["lengths"]).cuda(),
+                                   scale)
+        frames = min(int(total[0]), ss.max_frames)
+        whole = fused_vocoder_forward(
+            smel[:, :frames].contiguous(),
+            pack_vocoder_weights(ref.model.vocoder, "f32"),
+            ref.model.upsample_rates, "f32")[0].cpu().numpy()
+    got = read_wav(os.path.join(out_dir, "streaming.wav"))
+    want_pcm = as_written(whole, os.path.join(out_dir, "ref.wav"))
+    bar = int(F32_TOL["atol"] * 32767 + F32_TOL["rtol"] * 32767) + 1
+    m1 = re.search(r"first-chunk latency ([\d.]+) ms", runs["streaming"]["log"])
+    m2 = re.search(r"total ([\d.]+)s \(RTF ([\d.]+)\)",
+                   runs["streaming"]["log"])
+    out["streaming"] = {
+        **pcm_diff(got, want_pcm, (bar, None),
+                   "synthesize CLI --streaming vs its mel vocoded whole"),
+        "max_pcm_lsb_bar": bar, "frames": frames,
+        "chunks": -(-frames // ss.vocoder.chunk_frames),
+        "first_chunk_ms": float(m1.group(1)),
+        "stream_s": float(m2.group(1)), "rtf": float(m2.group(2)),
+        "seconds": runs["streaming"]["seconds"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+EXPORT_BUCKETS = {"text_buckets": (32, 64, 128),
+                  "frame_buckets": (128, 256, 512), "batch_buckets": (1, 8)}
+
+
+def export_phase(synth, scale: float, out_dir: str, card: str,
+                 counters: Counters, lsb_bar) -> dict:
+    """``export_synthesizer`` of the flagship (``full=False``: 3 text × 3
+    frame buckets, 9 graphs and 3 probes) on the card in bf16 and f32, for
+    ``cuda`` and ``cpu``; ``ExportedSynthesizer`` on the card against the
+    live ``torch``-backend Synthesizer (frames equal, ±1 LSB) and against
+    the ``auto`` (kernel) Synthesizer (the dtype's ``lsb_bar``); the same
+    artifact loaded on the CPU against a CPU Synthesizer of the same
+    weights (±1 LSB) on a short text; export seconds, artifact MB, and
+    warm ms per call of the exported graph beside the live calls."""
+    import copy
+
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.serving.export import (ExportedSynthesizer,
+                                                export_synthesizer)
+
+    t_phase = time.perf_counter()
+    texts = EVAL_TEXTS[::2]
+    cpu_model = copy.deepcopy(synth.model).cpu()
+    out = {"phase": "export", "card": card, "duration_scale": scale,
+           "buckets": EXPORT_BUCKETS}
+    counters.zero()
+    for cd in ("bf16", "f32"):
+        live = pipeline.Synthesizer(synth.model, compute_dtype=cd,
+                                    vocoder_backend="torch", device="cuda",
+                                    **EXPORT_BUCKETS)
+        auto = pipeline.Synthesizer(synth.model, compute_dtype=cd,
+                                    vocoder_backend="auto", device="cuda",
+                                    **EXPORT_BUCKETS)
+        art = os.path.join(out_dir, f"artifact_{cd}")
+        t0 = time.perf_counter()
+        manifest = export_synthesizer(live, art, platforms=("cuda", "cpu"))
+        export_s = time.perf_counter() - t0
+        if (len(manifest["graphs"]), len(manifest["probes"])) != (9, 3):
+            raise RuntimeError(f"{len(manifest['graphs'])} graphs, "
+                               f"{len(manifest['probes'])} probes")
+        mb = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(art) for f in fs) / 1e6
+        ex = ExportedSynthesizer(art, device="cuda")
+        vs_live, vs_auto, frames = [], [], []
+        for text in texts:
+            e, lv, au = (s.synthesize(text, scale) for s in (ex, live, auto))
+            if not e["frames"] == lv["frames"] == au["frames"] > 0:
+                raise RuntimeError(f"{cd} exported frames {e['frames']} vs "
+                                   f"live {lv['frames']} / auto "
+                                   f"{au['frames']}")
+            frames.append(e["frames"])
+            vs_live.append(pcm_diff(e["audio_pcm"], lv["audio_pcm"], (1, None),
+                                    f"{cd} exported vs live torch")
+                           ["max_pcm_lsb"])
+            vs_auto.append(pcm_diff(e["audio_pcm"], au["audio_pcm"],
+                                    lsb_bar[cd], f"{cd} exported vs auto")
+                           ["max_pcm_lsb"])
+        # warm ms a call (host clock; each call ends in its PCM's copy to
+        # the host), batch 1, the longest of the texts
+        timing = {}
+        for name, s in (("exported", ex), ("live_torch", live),
+                        ("live_auto", auto)):
+            s.synthesize(texts[0], scale)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                s.synthesize(texts[0], scale)
+            timing[f"{name}_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+        short = "Hello world."
+        ex_cpu = ExportedSynthesizer(art, device="cpu")
+        live_cpu = pipeline.Synthesizer(cpu_model, compute_dtype=cd,
+                                        vocoder_backend="torch",
+                                        device="cpu", **EXPORT_BUCKETS)
+        t0 = time.perf_counter()
+        c = ex_cpu.synthesize(short, scale)
+        cpu_s = time.perf_counter() - t0
+        lc = live_cpu.synthesize(short, scale)
+        if not c["frames"] == lc["frames"] > 0:
+            raise RuntimeError(f"{cd} CPU-loaded frames {c['frames']} vs "
+                               f"{lc['frames']}")
+        out[cd] = {"export_s": export_s, "artifact_mb": mb,
+                   "graphs": len(manifest["graphs"]),
+                   "probes": len(manifest["probes"]),
+                   "frames": frames, "max_pcm_lsb_vs_live_torch": max(vs_live),
+                   "max_pcm_lsb_vs_auto": max(vs_auto),
+                   "auto_bar": lsb_bar[cd][0], **timing,
+                   "cpu": {"frames": c["frames"], "first_call_s": cpu_s,
+                           **pcm_diff(c["audio_pcm"], lc["audio_pcm"],
+                                      (1, None), f"{cd} artifact on the CPU "
+                                      "vs a CPU Synthesizer")}}
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1 or launches["fused_vocoder_tc32"] < 1:
+        raise RuntimeError(f"export's auto comparison skipped a kernel: "
+                           f"{launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def write_corpus(root: str, n: int = 16, sample_rate: int = 22050) -> list:
+    """An LJSpeech-layout corpus (``wavs/`` + ``metadata.csv``) of ``n``
+    clips, 1.0–2.5 s of formant-like harmonics under an envelope with a
+    little noise, made from SEED; returns the clips."""
+    from m2tts_tpu_torch.frontend.audio import save_wav
+
+    os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    clips, lines = [], []
+    for i in range(n):
+        t = np.arange(int(sample_rate * (1.0 + 1.5 * i / (n - 1)))) \
+            / sample_rate
+        f0 = 110.0 + 15.0 * i + 10.0 * np.sin(2 * np.pi * 3.0 * t)
+        phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+        audio = sum(np.sin(k * phase) / k for k in range(1, 8))
+        audio *= 0.5 * (1 - np.cos(2 * np.pi * t / t[-1])) \
+            * (0.6 + 0.4 * np.sin(2 * np.pi * 4.0 * t))
+        audio += 0.01 * rng.standard_normal(len(t))
+        audio = (0.8 * audio / np.abs(audio).max()).astype(np.float32)
+        save_wav(audio, os.path.join(root, "wavs", f"LJ001-{i:04d}.wav"),
+                 sample_rate)
+        text = EVAL_TEXTS[i % len(EVAL_TEXTS)]
+        lines.append(f"LJ001-{i:04d}|{text}|{text}")
+        clips.append(audio)
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return clips
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names it ("model name", or its
+    vendor, family and model numbers where a VM hides the name), with the
+    machine type."""
+    import platform
+
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model",
+                                     "CPU implementer", "CPU part")
+        if fields.get(k)) or "unknown"
+    return f"{platform.machine()}: {name}"
+
+
+def native_frontend_phase(clips, card: str) -> dict:
+    """The C++ mel frontend built by the port's loader (``g++ -O3
+    -march=native``), held against the NumPy mel on the corpus's clips
+    (atol 2e-5); host ms per audio-second of both paths and of the thread
+    pool. Host times, on the card machine's CPU."""
+    from m2tts_tpu_torch.frontend import native
+    from m2tts_tpu_torch.frontend.audio import AudioProcessor
+
+    t0 = time.perf_counter()
+    built = not native.lib_path().exists()
+    if not native.native_available():
+        raise RuntimeError("the native mel frontend did not build")
+    build_s = time.perf_counter() - t0
+    ap_native = AudioProcessor(n_mels=80, fmax=11025, use_native=True)
+    ap_numpy = AudioProcessor(n_mels=80, fmax=11025, use_native=False)
+    err = 0.0
+    for a in clips:
+        d = np.abs(ap_native.compute_mel(a) - ap_numpy.compute_mel(a)).max()
+        err = max(err, float(d))
+    if err > 2e-5:
+        raise RuntimeError(f"native mel differs from NumPy by {err}")
+    audio_s = sum(len(a) for a in clips) / 22050
+    times = {}
+    for name, fn in (
+            ("native", lambda: [ap_native.compute_mel(a) for a in clips]),
+            ("numpy", lambda: [ap_numpy.compute_mel(a) for a in clips]),
+            ("native_batch", lambda: native.compute_mel_batch(
+                clips, n_mels=80, fmax=11025.0))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        times[f"{name}_host_ms_per_audio_s"] = \
+            (time.perf_counter() - t0) / 3 * 1e3 / audio_s
+    out = {"phase": "native_frontend", "card": card, "cpu": cpu_model(),
+           "cpu_count": os.cpu_count(), "built_now": built,
+           "build_s": build_s, "library": native.lib_path().name,
+           "clips": len(clips), "audio_s": audio_s,
+           "max_abs_err_vs_numpy": err, "tol": 2e-5, **times}
+    emit(out)
+    return out
+
+
+def evaluate_cli_phase(stage1_dir, corpus: str, card: str,
+                       counters: Counters) -> dict:
+    """``evaluation.evaluate.main(argv)`` in this process on the stage-1
+    checkpoint: ``--data-dir`` (the corpus, its mels by the native
+    frontend: ``AudioProcessor(use_native=True)`` builds and loads it
+    first, so the CLI's 'auto' takes it) ``--audio-metrics --json`` and
+    two ``-t`` texts (bf16 on ``vocoder_tc.cu``)."""
+    from m2tts_tpu_torch.evaluation import evaluate as cli
+    from m2tts_tpu_torch.frontend.audio import AudioProcessor
+
+    AudioProcessor(use_native=True)
+    t0 = time.perf_counter()
+    counters.zero()
+    log = run_cli(cli.main, ["--checkpoint", str(stage1_dir), "--data-dir",
+                             corpus, "--audio-metrics", "--json",
+                             "--num-samples", "16", "-t", EVAL_TEXTS[0],
+                             "-t", EVAL_TEXTS[5]])
+    launches = counters.read()
+    report = json.loads(log.strip().splitlines()[-1])
+    ds = report.get("dataset", {})
+    need = {"mel_l1_distance", "mel_l2_distance", "mel_combined_distance",
+            "duration_l1_loss", "audio_stoi", "audio_spectral_convergence",
+            "audio_log_spectral_distance"}
+    if not need <= set(ds) or not all(np.isfinite(v) for v in ds.values()):
+        raise RuntimeError(f"evaluate report: {report}")
+    if len(report.get("texts", [])) != 2 \
+            or not 1.0 <= report["estimated_mos_mean"] <= 5.0:
+        raise RuntimeError(f"evaluate texts: {report.get('texts')}")
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"evaluate -t skipped the kernel: {launches}")
+    out = {"phase": "evaluate_cli", "card": card, "launches": launches,
+           "keys": sorted(ds), "dataset": ds,
+           "estimated_mos_mean": report["estimated_mos_mean"],
+           "text_seconds": [t["seconds"] for t in report["texts"]],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def device_info_phase(card: str) -> dict:
+    from m2tts_tpu_torch.utils.device import (clear_caches, get_device_info,
+                                              hbm_usage)
+
+    info, usage = get_device_info(), hbm_usage()
+    if info["backend"] != "cuda" or len(usage) != torch.cuda.device_count():
+        raise RuntimeError(f"device info {info} / {usage}")
+    clear_caches()
+    out = {"phase": "device_info", "card": card, "info": info,
+           "hbm_usage": usage, "hbm_after_clear_caches": hbm_usage()}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1738,11 +2138,27 @@ def main() -> int:
         train_stage2_vs_cpu_phase(f"{tdir}/stage2", card)
         paths["train_stage2_to_serve"] = train_stage2_to_serve_phase(
             stage2, buckets, card, counters, lsb_bar["bf16"])["launches"]
+        stage2_dir = stage2["runs"]["prefetcher"]["trainer"].ckpt.directory
         for run in stage2["runs"].values():
             run["trainer"].close()
         del stage2
+        torch.cuda.empty_cache()
 
-    # ---- 8. kernels line, then the result
+        # ---- 8. the deployment surface: the synthesize CLI on the stage-2
+        # checkpoint, export artifacts, the native mel frontend, the
+        # evaluate CLI on the stage-1 checkpoint, the device utilities
+        clips = write_corpus(f"{tdir}/corpus")
+        native_frontend_phase(clips, card)  # first: it times the build
+        os.makedirs(f"{tdir}/cli")
+        paths["synthesize_cli"] = synthesize_cli_phase(
+            stage2_dir, f"{tdir}/cli", card, counters)["launches"]
+        paths["export"] = export_phase(synth, scale, tdir, card, counters,
+                                       lsb_bar)["launches"]
+        paths["evaluate_cli"] = evaluate_cli_phase(
+            stage1_dir, f"{tdir}/corpus", card, counters)["launches"]
+        device_info_phase(card)
+
+    # ---- 9. kernels line, then the result
     def launched(name):
         return {"launches": sum(c[name] for c in paths.values()),
                 "paths": [p for p, c in paths.items() if c[name]],

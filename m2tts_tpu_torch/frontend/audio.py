@@ -1,11 +1,14 @@
 """Host-side audio DSP frontend (NumPy + stdlib WAV IO).
 
-A copy of the parts of ``m2tts_tpu/frontend/audio.py`` that training and
-validation need: WAV IO, the centred STFT (reflect padding, periodic Hann,
-``win_length`` zero-padded to ``n_fft``), the Slaney mel filterbank,
-``power_to_db`` (ref = max, top_db 80) and the per-utterance min-max
-normalisation to [-1, 1] that ``AudioProcessor.compute_mel`` applies: the
-model's training target.
+A copy of ``m2tts_tpu/frontend/audio.py``: WAV IO, the centred STFT
+(reflect padding, periodic Hann, ``win_length`` zero-padded to ``n_fft``)
+and its overlap-add inverse, the Slaney mel filterbank, ``power_to_db``
+(ref = max, top_db 80) and the per-utterance min-max normalisation to
+[-1, 1] that ``AudioProcessor.compute_mel`` applies (the model's training
+target), and the Griffin-Lim inversion of a mel (``mel_to_audio``), which
+runs on the host as in the JAX package. ``AudioProcessor(use_native=...)``
+takes the C++ mel frontend (``frontend/native.py``) with the JAX
+package's semantics.
 """
 
 from __future__ import annotations
@@ -116,6 +119,33 @@ def stft(audio: np.ndarray, n_fft: int = DEFAULT_N_FFT,
     return np.fft.rfft(frames * window, n=n_fft, axis=1).T
 
 
+def istft(spec: np.ndarray, hop_length: int = DEFAULT_HOP,
+          win_length: Optional[int] = None, center: bool = True,
+          length: Optional[int] = None) -> np.ndarray:
+    """Inverse STFT with window-sum-squared normalization (overlap-add)."""
+    n_fft = 2 * (spec.shape[0] - 1)
+    win_length = win_length or n_fft
+    window = _pad_center(hann_window(win_length), n_fft)
+    frames = np.fft.irfft(spec.T, n=n_fft, axis=1) * window
+    n_frames = frames.shape[0]
+    out_len = n_fft + hop_length * (n_frames - 1)
+    out = np.zeros(out_len)
+    wsum = np.zeros(out_len)
+    w2 = window**2
+    for i in range(n_frames):
+        start = i * hop_length
+        out[start:start + n_fft] += frames[i]
+        wsum[start:start + n_fft] += w2
+    out = np.where(wsum > 1e-11, out / np.maximum(wsum, 1e-11), out)
+    if center:
+        out = out[n_fft // 2:]
+    if length is not None:
+        out = np.pad(out[:length], (0, max(0, length - len(out))))
+    else:
+        out = out[: out_len - n_fft]
+    return out.astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Mel filterbank (Slaney scale + Slaney norm — librosa defaults)
 # ---------------------------------------------------------------------------
@@ -179,6 +209,70 @@ def power_to_db(S: np.ndarray, ref: Optional[float] = None, amin: float = 1e-10,
     return log_spec
 
 
+def db_to_power(db: np.ndarray, ref: float = 1.0) -> np.ndarray:
+    return ref * np.power(10.0, 0.1 * np.asarray(db, dtype=np.float64))
+
+
+# ---------------------------------------------------------------------------
+# Griffin-Lim inversion (validation path, pre-vocoder)
+# ---------------------------------------------------------------------------
+
+def griffin_lim(magnitude: np.ndarray, n_iter: int = 32,
+                hop_length: int = DEFAULT_HOP, win_length: Optional[int] = None,
+                momentum: float = 0.99) -> np.ndarray:
+    """Griffin-Lim with momentum on an STFT magnitude [freq, frames]; the
+    starting phases come from ``default_rng(0)``."""
+    n_fft = 2 * (magnitude.shape[0] - 1)
+    win_length = win_length or n_fft
+    rng = np.random.default_rng(0)
+    angles = np.exp(2j * np.pi * rng.random(magnitude.shape))
+    rebuilt = np.zeros_like(angles)
+    for _ in range(n_iter):
+        audio = istft(magnitude * angles, hop_length, win_length)
+        tprev = rebuilt
+        rebuilt = stft(audio, n_fft, hop_length, win_length)
+        rebuilt = rebuilt[:, : magnitude.shape[1]]
+        if rebuilt.shape[1] < magnitude.shape[1]:
+            rebuilt = np.pad(rebuilt, ((0, 0), (0, magnitude.shape[1] - rebuilt.shape[1])))
+        angles = rebuilt - (momentum / (1 + momentum)) * tprev
+        denom = np.abs(angles)
+        angles = angles / np.maximum(denom, 1e-16)
+    return istft(magnitude * angles, hop_length, win_length)
+
+
+def mel_to_audio(mel: np.ndarray,
+                 sample_rate: int = DEFAULT_SAMPLE_RATE,
+                 n_fft: int = DEFAULT_N_FFT,
+                 hop_length: int = DEFAULT_HOP,
+                 win_length: int = DEFAULT_WIN,
+                 n_iter: int = 32,
+                 fmin: float = 0.0,
+                 fmax: Optional[float] = None,
+                 reference_denorm: bool = True) -> np.ndarray:
+    """Normalized log-mel [n_mels, frames] → audio via pinv(mel basis) +
+    Griffin-Lim, peak-normalised.
+
+    ``reference_denorm=True`` applies the reference's ``(mel+1)/2`` before
+    ``db_to_power`` — not the true inverse of the min-max normalization,
+    kept for behavioral parity with the JAX package.
+    """
+    mel = np.asarray(mel, dtype=np.float64)
+    if reference_denorm:
+        mel_power = db_to_power((mel + 1.0) / 2.0)
+    else:
+        # best-effort inverse assuming the full 80 dB range was used
+        mel_power = db_to_power(mel * 40.0 - 40.0)
+    basis = mel_filterbank(sample_rate, n_fft, mel.shape[0], fmin, fmax).astype(np.float64)
+    inv = np.linalg.pinv(basis)
+    spec_power = np.maximum(0.0, inv @ mel_power)
+    magnitude = np.sqrt(spec_power)
+    audio = griffin_lim(magnitude, n_iter, hop_length, win_length)
+    peak = np.max(np.abs(audio))
+    if peak > 0:
+        audio = audio / peak
+    return audio.astype(np.float32)
+
+
 def validate_audio_params(sample_rate: int, n_fft: int, hop_length: int,
                           win_length: int, n_mels: int, fmin: float = 0.0,
                           fmax: Optional[float] = None) -> None:
@@ -212,7 +306,12 @@ def validate_audio_params(sample_rate: int, n_fft: int, hop_length: int,
 
 class AudioProcessor:
     """The DSP pipeline with fixed parameters: ``process_file`` → (audio,
-    normalised mel [n_mels, frames])."""
+    normalised mel [n_mels, frames]) and ``mel_to_audio`` for Griffin-Lim.
+
+    ``use_native``: ``'auto'`` computes mels with the C++ frontend
+    (``frontend/native.py``) when it builds and loads, else with NumPy;
+    ``True`` raises ``RuntimeError`` when it cannot; ``False`` never tries.
+    The two paths agree within 2e-5 (``tests/test_torch_native.py``)."""
 
     def __init__(self, sample_rate: int = DEFAULT_SAMPLE_RATE,
                  n_fft: int = DEFAULT_N_FFT, hop_length: int = DEFAULT_HOP,
@@ -229,11 +328,15 @@ class AudioProcessor:
         self.fmin = fmin
         self.fmax = fmax if fmax is not None else sample_rate / 2.0
         self._mel_basis = mel_filterbank(sample_rate, n_fft, n_mels, fmin, self.fmax)
-        # the native C++ frontend of the JAX package (native/mel_frontend.cpp)
-        # has no loader in the port yet: "auto" takes the NumPy path
-        if use_native is True:
-            raise RuntimeError("the native mel frontend is not ported; "
-                               "use_native='auto' runs the NumPy path")
+        self._native = None
+        if use_native in ("auto", True):
+            from m2tts_tpu_torch.frontend import native
+
+            if native.native_available():
+                self._native = native
+            elif use_native is True:
+                raise RuntimeError("native mel frontend requested but it "
+                                   "could not be built or loaded")
 
     @classmethod
     def from_config(cls, data_cfg) -> "AudioProcessor":
@@ -255,6 +358,13 @@ class AudioProcessor:
                    fmax=get("fmax"))
 
     def compute_mel(self, audio: np.ndarray) -> np.ndarray:
+        if self._native is not None:
+            try:
+                return self._native.compute_mel_native(
+                    audio, self.sample_rate, self.n_fft, self.hop_length,
+                    self.win_length, self.n_mels, self.fmin, self.fmax)
+            except ValueError:
+                pass  # shorter than one frame: the NumPy path pads it
         spec = np.abs(stft(audio, self.n_fft, self.hop_length, self.win_length)) ** 2.0
         mel_db = power_to_db(self._mel_basis @ spec)
         lo, hi = mel_db.min(), mel_db.max()
@@ -265,3 +375,7 @@ class AudioProcessor:
     def process_file(self, path: Union[str, Path]) -> Tuple[np.ndarray, np.ndarray]:
         audio, _ = load_wav(path, self.sample_rate)
         return audio, self.compute_mel(audio)
+
+    def mel_to_audio(self, mel: np.ndarray, n_iter: int = 32) -> np.ndarray:
+        return mel_to_audio(mel, self.sample_rate, self.n_fft, self.hop_length,
+                            self.win_length, n_iter, self.fmin, self.fmax)

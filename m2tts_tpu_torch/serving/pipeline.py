@@ -177,6 +177,22 @@ def make_vocoder_fn(model: M2TTS, vocoder_backend: str, compute_dtype: str
     return vf
 
 
+def probe_frames(model: M2TTS, ids: torch.Tensor, lengths: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """The duration probe in the model's dtype: per-utterance frame counts
+    [B] int32 (``floor(durations · scale)``, padded phonemes contribute
+    zero). ``scale`` is an f32 0-d tensor."""
+    enc, mask = model.text_encoder(ids, lengths)
+    durations = model.duration_predictor(enc) * mask.to(torch.float32)
+    frames = torch.floor(durations * scale).to(torch.int32)
+    return frames.clamp_min(0).sum(dim=1)
+
+
+def quantize_pcm16(audio: torch.Tensor) -> torch.Tensor:
+    """Waveform in [-1, 1] (any float dtype) → int16 PCM, computed in f32."""
+    return (torch.clamp(audio.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
 class Synthesizer:
     """Bucketed text→waveform engine over one model on one device."""
 
@@ -248,12 +264,8 @@ class Synthesizer:
                            duration_scale).cpu().numpy()
 
     def _probe(self, ids, lengths, duration_scale: float) -> torch.Tensor:
-        m = self.model
-        enc, mask = m.text_encoder(ids, lengths)
-        durations = m.duration_predictor(enc) * mask.to(torch.float32)
-        scale = torch.tensor(duration_scale, dtype=torch.float32)
-        frames = torch.floor(durations * scale).to(torch.int32)
-        return frames.clamp_min(0).sum(dim=1)
+        return probe_frames(self.model, ids, lengths, torch.tensor(
+            duration_scale, dtype=torch.float32))
 
     def _run(self, ids, lengths, duration_scale: float, max_frames: int,
              want_mel: bool, pcm_format: str) -> Dict[str, torch.Tensor]:
@@ -264,8 +276,7 @@ class Synthesizer:
         else:
             out = model.acoustic(ids, lengths, duration_scale, max_frames)
             audio = self._vocode(out["mel_output"].float())
-        audio = audio.float()
-        pcm = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
+        pcm = quantize_pcm16(audio)
         if pcm_format == "mulaw":
             pcm = mulaw_encode_pcm16(pcm)
         result = {"pcm": pcm, "total_frames": out["total_frames"]}

@@ -1,16 +1,22 @@
-"""Device selection and the memory and thermal gauges of the port.
+"""Device selection, inventory and the memory and thermal gauges of the
+port.
 
-``MemoryTracker`` and ``ThermalMonitor`` are the counterparts of
-``m2tts_tpu/utils/device.py:210-277``: the same metric keys, read from
-torch's caching allocator for the trainer's device and from psutil for the
-host.
+``get_device_info``, ``hbm_usage``, ``clear_caches``, ``MemoryTracker`` and
+``ThermalMonitor`` are the counterparts of ``m2tts_tpu/utils/device.py``
+(``:140-208``, ``:210-281``): the same keys, read from ``torch.cuda`` (the
+caching allocator and the driver's free/total count) for the devices and
+from psutil for the host. The JAX module's XLA compile-cache helpers
+(``enable_persistent_compile_cache``, ``honor_platform_env`` and the host
+fingerprint that scopes the cache) have no counterpart: PyTorch runs
+eagerly and compiles no graph per bucket, and the port's CUDA kernels are
+cached by ``ops/cuda/build.py`` under a hash of their sources.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -27,6 +33,80 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def get_device_info() -> Dict[str, Any]:
+    """Host and accelerator inventory: the JAX function's keys (backend,
+    device counts and names, process index and count, the psutil host
+    fields when psutil is present) and, per CUDA device, its properties
+    (name, total memory, SM count, compute capability)."""
+    cuda = torch.cuda.is_available()
+    count = torch.cuda.device_count() if cuda else 0
+    info: Dict[str, Any] = {
+        "backend": "cuda" if cuda else "cpu",
+        "device_count": count if cuda else 1,
+        "local_device_count": count if cuda else 1,
+        "devices": ([f"cuda:{i}" for i in range(count)] if cuda
+                    else ["cpu"]),
+        "process_index": 0,
+        "process_count": 1,
+    }
+    if cuda:
+        props = []
+        for i in range(count):
+            p = torch.cuda.get_device_properties(i)
+            props.append({"name": p.name,
+                          "total_memory_gb": p.total_memory / 1e9,
+                          "sm_count": p.multi_processor_count,
+                          "capability": f"{p.major}.{p.minor}"})
+        info["device_properties"] = props
+    try:
+        import psutil
+
+        vm = psutil.virtual_memory()
+        info["host_memory_total_gb"] = vm.total / 1e9
+        info["host_memory_available_gb"] = vm.available / 1e9
+        info["host_cpu_count"] = psutil.cpu_count()
+    except ImportError:
+        pass
+    return info
+
+
+def hbm_usage() -> List[Dict[str, float]]:
+    """Per CUDA device, memory in GB with the JAX keys: bytes held by
+    torch's caching allocator (``bytes_in_use_gb``), the device's total
+    (``bytes_limit_gb``), the allocator's peak (``peak_bytes_gb``), and
+    what the driver reports free (``free_gb``, every process counted).
+    Empty without a CUDA device, as the JAX function is on a backend
+    without memory stats."""
+    if not torch.cuda.is_available():
+        return []
+    usage = []
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        free, total = torch.cuda.mem_get_info(i)
+        usage.append({
+            "bytes_in_use_gb": stats.get("allocated_bytes.all.current", 0)
+            / 1e9,
+            "bytes_limit_gb": total / 1e9,
+            "peak_bytes_gb": stats.get("allocated_bytes.all.peak", 0) / 1e9,
+            "free_gb": free / 1e9,
+        })
+    return usage
+
+
+def clear_caches() -> None:
+    """Drop what the port caches for reuse: the STFT framing tables and
+    mel filterbanks of ``ops/stft.py`` (device tensors) and the blocks
+    torch's caching allocator holds unused. The built kernel libraries
+    stay loaded (the counterpart of ``jax.clear_caches``, which drops
+    compiled executables, would be to rebuild them: nothing gains)."""
+    from m2tts_tpu_torch.ops import stft
+
+    stft._tables.cache_clear()
+    stft.mel_basis.cache_clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 class MemoryTracker:

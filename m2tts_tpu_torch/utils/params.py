@@ -82,16 +82,27 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": root}
 
 
+def _get(node, field: str):
+    return node[field] if isinstance(node, Mapping) else getattr(node, field)
+
+
 def _find(node, fields: Tuple[str, ...]):
-    """The first object in a nest of tuples (optax's chain and named-tuple
-    states) that has every attribute in ``fields``."""
-    if all(hasattr(node, f) for f in fields):
+    """The first object in a nest of tuples, lists and dicts that has
+    every name in ``fields``: optax's chain and named-tuple states as
+    ``jax.device_get`` gives them (attributes), or as orbax restores them
+    without a template (lists and dicts keyed by the field names)."""
+    if isinstance(node, Mapping):
+        if all(f in node for f in fields):
+            return node
+        children = node.values()
+    elif all(hasattr(node, f) for f in fields):
         return node
-    if isinstance(node, (tuple, list)):
-        for child in node:
-            found = _find(child, fields)
-            if found is not None:
-                return found
+    else:
+        children = node if isinstance(node, (tuple, list)) else ()
+    for child in children:
+        found = _find(child, fields)
+        if found is not None:
+            return found
     return None
 
 
@@ -99,26 +110,27 @@ def optimizer_state_from_optax(opt_state, model: torch.nn.Module
                                ) -> Dict[str, Any]:
     """An optax state of the stage-1 optimizer (``chain(clip_by_global_norm,
     adamw)``, optionally inside ``MultiSteps``), as ``jax.device_get``
-    gives it → ``training.trainer.Optimizer.state_dict()`` for ``model``:
-    Adam's moments ``mu``/``nu`` and applied-update ``count``, and under
+    gives it or as orbax restores it without a template →
+    ``training.trainer.Optimizer.state_dict()`` for ``model``: Adam's
+    moments ``mu``/``nu`` and applied-update ``count``, and under
     MultiSteps the accumulated gradient and ``mini_step``. Optax's named
     tuples are found by their fields, so optax is not imported."""
     names = [n for n, _ in model.named_parameters()]
     multi = _find(opt_state, ("mini_step", "gradient_step", "acc_grads",
                               "inner_opt_state"))
-    adam = _find(multi.inner_opt_state if multi is not None else opt_state,
-                 ("count", "mu", "nu"))
+    adam = _find(_get(multi, "inner_opt_state") if multi is not None
+                 else opt_state, ("count", "mu", "nu"))
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optax state")
-    count = int(np.asarray(adam.count))
-    mu, nu = from_flax(adam.mu), from_flax(adam.nu)
+    count = int(np.asarray(_get(adam, "count")))
+    mu, nu = from_flax(_get(adam, "mu")), from_flax(_get(adam, "nu"))
     state: Dict[str, Any] = {
         "count": count,
         "mu": {n: mu[n] for n in names} if count else {},
         "nu": {n: nu[n] for n in names} if count else {},
         "mini_step": 0, "acc_grads": None}
     if multi is not None:
-        acc = from_flax(multi.acc_grads)
-        state["mini_step"] = int(np.asarray(multi.mini_step))
+        acc = from_flax(_get(multi, "acc_grads"))
+        state["mini_step"] = int(np.asarray(_get(multi, "mini_step")))
         state["acc_grads"] = {n: acc[n] for n in names}
     return state

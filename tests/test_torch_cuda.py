@@ -10,8 +10,12 @@ same step on the CPU with TF32 off, the prefetcher's side-stream copies
 bit-equal to their host batches, the device cache), a reference ``.pt``
 served through ``auto``, and stage 2 on the card (the multi-scale
 discriminator's forward and input/weight gradients against the CPU in
-f32 and in f64, and one fused GAN step against the CPU in f32, TF32 off).
-They skip without a card. This file imports no JAX, so on the card it runs without the test
+f32 and in f64, and one fused GAN step against the CPU in f32, TF32 off),
+and the deployment surface on the card (a ``torch.export`` artifact
+exported there against the live ``torch``-backend Synthesizer, ±1 LSB, and
+loaded on the CPU against a CPU Synthesizer of the same weights, ±1 LSB;
+the synthesize CLI's WAV against ``Synthesizer`` through the kernel,
+0 LSB). They skip without a card. This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -459,3 +463,101 @@ def test_gan_step_on_cuda_matches_cpu(tmp_path, no_tf32):
                                        msg=f"{net} {k}")
     for t in tr.values():
         t.close()
+
+
+# -- the deployment surface on the card ---------------------------------------
+
+_EXPORT_BUCKETS = dict(text_buckets=(16, 32), frame_buckets=(64, 128),
+                       batch_buckets=(1, 2))
+_TEXTS = ["hello world", "the quick brown fox jumps"]
+
+
+@pytest.fixture(scope="module")
+def exported_on_cuda(tmp_path_factory):
+    """A tiny model, its live ``torch``-backend Synthesizers on the card,
+    and an artifact of each dtype exported there for cuda and cpu."""
+    from m2tts_tpu_torch.serving.export import export_synthesizer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = _tiny_model()
+    root = tmp_path_factory.mktemp("export_cuda")
+    live = {}
+    for cd in ("f32", "bf16"):
+        live[cd] = Synthesizer(model, compute_dtype=cd,
+                               vocoder_backend="torch", **_EXPORT_BUCKETS)
+        export_synthesizer(live[cd], root / cd, full=True,
+                           platforms=("cuda", "cpu"))
+    return model, live, root
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_exported_on_cuda_matches_live(exported_on_cuda, cd):
+    from m2tts_tpu_torch.serving.export import ExportedSynthesizer
+
+    _, live, root = exported_on_cuda
+    ex = ExportedSynthesizer(root / cd)
+    assert ex.device.type == "cuda"
+    for scale in (1.0, 12.0):
+        for a, b in zip(live[cd].synthesize_batch(_TEXTS, scale),
+                        ex.synthesize_batch(_TEXTS, scale)):
+            assert a["frames"] == b["frames"]
+            assert np.abs(a["audio_pcm"].astype(np.int32)
+                          - b["audio_pcm"]).max(initial=0) <= 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_exported_on_cuda_runs_on_cpu(exported_on_cuda, cd):
+    import copy
+
+    from m2tts_tpu_torch.serving.export import ExportedSynthesizer
+
+    model, _, root = exported_on_cuda
+    ex = ExportedSynthesizer(root / cd, device="cpu")
+    assert all(v.device.type == "cpu" for v in ex.params.values())
+    cpu = Synthesizer(copy.deepcopy(model).cpu(), compute_dtype=cd,
+                      vocoder_backend="torch", device="cpu",
+                      **_EXPORT_BUCKETS)
+    for a, b in zip(cpu.synthesize_batch(_TEXTS, 12.0),
+                    ex.synthesize_batch(_TEXTS, 12.0)):
+        assert a["frames"] == b["frames"] > 0
+        assert np.abs(a["audio_pcm"].astype(np.int32)
+                      - b["audio_pcm"]).max(initial=0) <= 1
+
+
+@needs_cuda
+def test_synthesize_cli_on_cuda_matches_synthesizer(tmp_path):
+    import wave
+
+    from m2tts_tpu_torch.frontend.audio import save_wav
+    from m2tts_tpu_torch.serving import synthesize
+    from m2tts_tpu_torch.serving.pipeline import from_checkpoint
+    from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
+
+    model = _tiny_model()
+    CheckpointManager(tmp_path / "ckpt").save(1, {
+        "params": {k: v.cpu() for k, v in model.state_dict().items()},
+        "step": 1}, config={"model": {
+            "text_encoder": {"hidden_dim": 32, "num_layers": 1},
+            "decoder": {"mel_channels": 16, "num_layers": 1},
+            "vocoder": {"hidden_channels": 32,
+                        "upsample_rates": [8, 8, 2, 2]}}})
+
+    def read(path):
+        with wave.open(str(path), "rb") as f:
+            return np.frombuffer(f.readframes(f.getnframes()), "<i2")
+
+    before = _counts()["bf16"]
+    assert synthesize.main(["--text", _TEXTS[1], "--checkpoint",
+                            str(tmp_path / "ckpt"), "--duration-scale", "12",
+                            "--output", str(tmp_path / "cli.wav")]) == 0
+    assert _counts()["bf16"] > before  # auto: bf16 on vocoder_tc.cu
+    synth = from_checkpoint(tmp_path / "ckpt")
+    assert (synth.vocoder_backend, synth.compute_dtype) == ("cuda", "bf16")
+    ref = synth.synthesize(_TEXTS[1], 12.0)
+    assert ref["frames"] > 0
+    save_wav(ref["audio"], tmp_path / "ref.wav")
+    np.testing.assert_array_equal(read(tmp_path / "cli.wav"),
+                                  read(tmp_path / "ref.wav"))

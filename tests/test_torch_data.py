@@ -6,6 +6,7 @@ cache's order, its byte budget, the prefetcher's order, errors and close,
 and the host bf16 cast of ``transfer_dtype`` (bit-equal to ml_dtypes').
 Every thread is a daemon with a timed join."""
 
+import shutil
 import threading
 import time
 
@@ -159,8 +160,18 @@ def test_audio_frontend_matches_jax(tmp_path):
                               win_length=512,
                               use_native=False).compute_mel(audio),
         atol=1e-6, rtol=0)
-    with pytest.raises(RuntimeError, match="native"):
-        taudio.AudioProcessor(use_native=True)
+    # use_native=True takes the C++ frontend, which 'auto' took above; it
+    # raises only where the frontend cannot be built (no g++; the forced
+    # build failure is in tests/test_torch_native.py)
+    if shutil.which("g++") is None:
+        with pytest.raises(RuntimeError, match="native"):
+            taudio.AudioProcessor(use_native=True)
+    else:
+        native = taudio.AudioProcessor(n_mels=8, n_fft=512, hop_length=128,
+                                       win_length=512, use_native=True)
+        assert native._native is not None and ap._native is not None
+        np.testing.assert_array_equal(native.compute_mel(audio),
+                                      ap.compute_mel(audio))
 
 
 def test_epoch_shuffled_same_order():

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``m2tts_tpu_torch`` and everything ``chip_smoke.py`` imports loads no JAX,
-no flax and no module of the JAX package; the entry points default to CUDA
-and raise without it; ``chip_smoke.py`` fails without a CUDA device and
-without the rest of the repo."""
+no flax, no module of the JAX package and not ``tools/orbax_to_torch.py``
+(the converter imports both packages); the entry points, the CLIs among
+them, default to CUDA and raise without it; ``chip_smoke.py`` fails
+without a CUDA device and without the rest of the repo."""
 
 import ast
 import json
@@ -15,11 +16,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from m2tts_tpu_torch.evaluation import evaluate
 from m2tts_tpu_torch.models.tts_model import M2TTS
-from m2tts_tpu_torch.serving import pipeline
+from m2tts_tpu_torch.serving import export_model, pipeline, synthesize
+from m2tts_tpu_torch.serving.export import ExportedSynthesizer
 from m2tts_tpu_torch.training import train, train_stage2
 from m2tts_tpu_torch.training.trainer import Stage1Trainer
 from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, Config
 
 torch.set_num_threads(2)
@@ -68,12 +72,16 @@ def test_no_jax_or_reference_package_imported():
                  "data.prefetch", "utils.torch_compat",
                  "training.trainer_stage2", "training.train_stage2",
                  "models.discriminator", "ops.stft", "evaluation.stoi",
-                 "evaluation.metrics"):
+                 "evaluation.metrics", "serving.export",
+                 "serving.export_model", "serving.synthesize",
+                 "evaluation.evaluate", "frontend.native", "utils.device"):
         assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
     assert not bad, bad
     assert not any(_forbidden(m) for m in report["smoke"])
+    assert not any(m == "tools" or m.startswith("tools.")
+                   for m in report["modules"] + report["smoke"])
 
 
 def test_forbidden_matches_whole_names():
@@ -101,6 +109,32 @@ def test_entry_points_default_to_cuda():
         Stage2Trainer(Config({"model": FLAGSHIP_MODEL}))
     with pytest.raises(RuntimeError):
         train_stage2.main(["training.max_steps=1"])
+
+
+def test_clis_and_artifacts_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = M2TTS(hidden_dim=16, mel_channels=8, vocoder_channels=16,
+                  text_encoder_layers=1, decoder_layers=1)
+    CheckpointManager(tmp_path / "ckpt").save(1, {
+        "params": model.state_dict(), "step": 1}, config={"model": {
+            "text_encoder": {"hidden_dim": 16, "num_layers": 1},
+            "decoder": {"mel_channels": 8, "num_layers": 1},
+            "vocoder": {"hidden_channels": 16}}})
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(RuntimeError):
+        synthesize.main(["--text", "a", "--checkpoint", ckpt,
+                         "--output", str(tmp_path / "a.wav")])
+    with pytest.raises(RuntimeError):
+        evaluate.main(["--checkpoint", ckpt, "-t", "a"])
+    with pytest.raises(RuntimeError):
+        export_model.main(["--checkpoint", ckpt,
+                           "--output", str(tmp_path / "art")])
+    with pytest.raises(RuntimeError):
+        export_model.main(["--random-init", "--output", str(tmp_path / "b")])
+    with pytest.raises(RuntimeError):
+        ExportedSynthesizer(tmp_path / "art")
+    assert not (tmp_path / "a.wav").exists()
 
 
 def _run_smoke(cwd: Path):
