@@ -67,6 +67,22 @@ the warmup are overridden, ``STAGE2_OVERRIDES``):
   eight texts: PCM equal at 0 LSB to the in-memory EMA weights, within the
   bf16 bar of the ``mm`` vocoder on the same weights.
 
+Then the mesh paths (``multi_device``), each world of processes spawned
+with ``spawn`` (they import the port and load the kernels built above):
+
+- an NCCL world of one rank: three flagship stage-1 steps (f32, TF32 off)
+  on its (1, 1) mesh against the same steps without a mesh (in a new
+  process too; losses relative 1e-5, weights lr/10, beside the same steps
+  run twice without a mesh), and the ``auto`` Synthesizer on
+  the mesh (eight texts, then batch 64 × the 512 bucket) in bf16 and f32
+  against ``mesh=None`` at 0 LSB; ms a step and ms a batch with and
+  without the mesh;
+- two gloo ranks sharing the card: the (2, 1) and (1, 2) stage-1 steps
+  against the single-device steps (losses rtol 2e-4 / atol 2e-5, weights
+  lr/10), a (2, 1) GAN step (f32, batch 8) against one device, batch 64 ×
+  512 sharded over 'data' in both dtypes (frames equal, PCM within 1 LSB)
+  with each rank's kernel launches, and ``dryrun_multichip(2)``.
+
 One JSON line per phase; the line before the last lists the kernels (with
 the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
@@ -1824,6 +1840,289 @@ def device_info_phase(card: str) -> dict:
     return out
 
 
+# ---- multi-device: the mesh paths, each world spawned from here ---------
+
+# stage-1 on a mesh at the flagship's widths, f32 with TF32 off so that the
+# layouts differ only in the order of f32 sums; dropout stays on (every
+# layout draws the same global masks)
+MD_TRAIN = {"training.bf16": False, "training.transfer_dtype": None}
+# stage 2 on a (2, 1) mesh: the recipe in f32 at batch 8
+MD_STAGE2 = {"training.bf16": False, "training.batch_size": 8}
+# the synthesis buckets of a 2-rank data mesh (every batch bucket even)
+MD_BUCKETS = {"text_buckets": (32, 64, 128),
+              "frame_buckets": (128, 256, 384, 512), "batch_buckets": (8, 64)}
+# the mesh steps against the single-device steps: losses as the CPU tests
+# hold them (tests/test_torch_parallel.py: rtol 2e-4 / atol 2e-5; at world
+# size 1, relative 1e-5, TRAIN_VS_CPU's); the weights after three updates
+# within lr/10 (TRAIN_VS_CPU's), not the CPU tests' 1e-6: the card's
+# scatter-add atomics (the regulator's gather backward) sum in another
+# order from run to run, and Adam's early updates move a weight whose
+# gradient is near zero by up to the step's lr times its sign (1.8e-5 at
+# world size 1 in one run on an H100); the phase reports the same steps run
+# twice without a mesh beside it
+MD_LOSS = {"rtol": 2e-4, "atol": 2e-5}
+MD_PARAMS_ATOL = TRAIN_VS_CPU["params_abs"]
+
+
+def _md_device() -> torch.device:
+    """This process's card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def md_stage1(out_dir: str, dev: torch.device, mesh=None) -> dict:
+    """Three flagship stage-1 steps (f32) on fixed batches: their losses,
+    the gathered weights after them, then ms per step. ``mesh`` None in a
+    process group: the mesh ``system.mesh`` gives."""
+    from m2tts_tpu_torch.data.dataset import make_batches
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = Stage1Trainer(train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING, out_dir,
+                                   **MD_TRAIN), device=dev, mesh=mesh)
+    batches = list(make_batches(t.dataset, t.batch_size, t.buckets,
+                                seed=5))[:3]
+    losses = [{k: v.item() for k, v in t._train_step(t._put(b)).items()}
+              for b in batches]
+    params = t._host_state_copy()["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        t._train_step(t._put(batches[0]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    out = {"losses": losses, "params": params, "ms_per_step": ms,
+           "mesh": None if t.mesh is None else list(t.mesh.mesh.shape),
+           "batch": [t.batch_size, *batches[0]["mel"].shape[1:]]}
+    t.close()
+    return out
+
+
+def md_stage2(out_dir: str, dev: torch.device, mesh=None) -> dict:
+    """One fused flagship GAN step (f32, batch 8) on the first seeded host
+    batch: its metrics."""
+    from m2tts_tpu_torch.data.dataset import data_iterator
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, STAGE2_TRAINING
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = Stage2Trainer(train_config(FLAGSHIP_MODEL, STAGE2_TRAINING, out_dir,
+                                   overrides=STAGE2_OVERRIDES, **MD_STAGE2),
+                      device=dev, mesh=mesh)
+    batch = next(data_iterator(t.dataset, t.batch_size, t.buckets, seed=0,
+                               audio_samples=t._max_audio_samples()))
+    metrics = {k: v.item() for k, v in t.train_step(batch).items()}
+    t.close()
+    return metrics
+
+
+def md_synth(scale: float, texts, dev: torch.device, mesh=None,
+             time_dtype=None) -> dict:
+    """The flagship ``Synthesizer`` (``auto``: the kernels) in bf16 and f32
+    on ``texts``: frames and PCM per dtype, the kernels' launches from the
+    first Synthesizer's making on, and for ``time_dtype`` ms a batch."""
+    from m2tts_tpu_torch.ops.cuda import build, vocoder as cuda_vocoder
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+
+    counters = Counters(build, cuda_vocoder)
+    build._AVAILABLE = None  # each new process probes once: count it
+    counters.zero()
+    out = {}
+    for cd in ("bf16", "f32"):
+        s = pipeline.from_config(FLAGSHIP_MODEL, seed=SEED, device=dev,
+                                 compute_dtype=cd, mesh=mesh, **MD_BUCKETS)
+        res = s.synthesize_batch(texts, duration_scale=scale)
+        out[cd] = [(r["frames"], r["audio_pcm"]) for r in res]
+        if cd == time_dtype:  # warm first: a spawned process starts cold
+            for _ in range(3):
+                s.synthesize_batch(texts, duration_scale=scale)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                s.synthesize_batch(texts, duration_scale=scale)
+            out["ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / 10
+    out["launches"] = counters.read()
+    return out
+
+
+def md_no_mesh(out_dir: str, scale: float) -> dict:
+    """The same work without a mesh, in a new process as the ranks are (so
+    that ms a step and ms a batch compare like with like): stage 1 twice
+    (the card's own spread), the GAN step, the synthesis."""
+    torch.set_num_threads(1)  # as each rank of a world
+    dev = _md_device()
+    return {"stage1": md_stage1(f"{out_dir}/md_plain", dev),
+            "stage1_again": md_stage1(f"{out_dir}/md_plain_again", dev),
+            "stage2": md_stage2(f"{out_dir}/md_plain_s2", dev),
+            "synth": md_synth(scale, EVAL_TEXTS, dev),
+            "synth64": md_synth(scale, (EVAL_TEXTS * 8)[:64], dev,
+                                time_dtype="bf16")}
+
+
+def md_world1_rank(out_dir: str, scale: float) -> dict:
+    """World size 1 (NCCL on the card): the (1, 1) mesh's stage-1 steps and
+    synthesis (the eight texts, then batch 64 timed), to hold against
+    ``mesh=None``."""
+    from m2tts_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _md_device()
+    mesh = make_mesh()
+    return {"backend": torch.distributed.get_backend(),
+            "stage1": md_stage1(f"{out_dir}/md_world1", dev),
+            "synth": md_synth(scale, EVAL_TEXTS, dev, mesh),
+            "synth64": md_synth(scale, (EVAL_TEXTS * 8)[:64], dev, mesh,
+                                time_dtype="bf16")}
+
+
+def md_gloo_rank(out_dir: str, scale: float) -> dict:
+    """Two gloo ranks on the one card: stage-1 steps on (2, 1) and (1, 2),
+    a GAN step on (2, 1), batch 64 × the 512 bucket sharded over 'data',
+    and the dry run."""
+    from m2tts_tpu_torch.parallel.dryrun import dryrun_multichip
+    from m2tts_tpu_torch.parallel.mesh import make_mesh
+
+    rank = torch.distributed.get_rank()
+    dev = _md_device()
+    out = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+    for d, m in ((2, 1), (1, 2)):
+        out[f"stage1_{d}x{m}"] = md_stage1(
+            f"{out_dir}/md_gloo_{d}x{m}_{rank}", dev,
+            make_mesh(d, m))
+    mesh = make_mesh(2, 1)
+    out["stage2_2x1"] = md_stage2(f"{out_dir}/md_gloo_s2_{rank}", dev, mesh)
+    out["synth64"] = md_synth(scale, (EVAL_TEXTS * 8)[:64], dev, mesh)
+    out["dryrun"] = dryrun_multichip(2)
+    return out
+
+
+def _md_steps(got: dict, want: dict, loss_tol: dict, what: str,
+              faults: list) -> dict:
+    """Mesh steps against single-device steps: worst loss error (relative)
+    and weight error (max abs); what passes ``loss_tol`` or
+    ``MD_PARAMS_ATOL`` is added to ``faults``."""
+    rel = 0.0
+    for g, w in zip(got["losses"], want["losses"]):
+        for k in w:
+            err = abs(g[k] - w[k])
+            rel = max(rel, err / max(abs(w[k]), 1e-30))
+            if err > loss_tol["atol"] + loss_tol["rtol"] * abs(w[k]):
+                faults.append(f"{what} {k}: {g[k]} against {w[k]}")
+    params = max((got["params"][k] - v).abs().max().item()
+                 for k, v in want["params"].items())
+    if params > MD_PARAMS_ATOL:
+        faults.append(f"{what}: weights {params} from one device's")
+    return {"loss_max_rel": rel, "params_max_abs": params,
+            "ms_per_step": got["ms_per_step"], "mesh": got["mesh"]}
+
+
+def _md_synth(got: dict, want: dict, lsb: int, what: str,
+              faults: list) -> dict:
+    """Sharded synthesis against ``mesh=None``: frames equal, the worst
+    PCM difference in LSB per dtype; what passes ``lsb`` goes to
+    ``faults``."""
+    out = {}
+    for cd in ("bf16", "f32"):
+        worst = 0
+        for (fa, pa), (fb, pb) in zip(got[cd], want[cd]):
+            if fa != fb or fa <= 0 or pa.shape != pb.shape:
+                faults.append(f"{what} {cd}: frames {fa} against {fb}")
+                continue
+            worst = max(worst, int(np.abs(pa.astype(np.int32)
+                                          - pb).max(initial=0)))
+        if worst > lsb:
+            faults.append(f"{what} {cd}: PCM {worst} LSB from mesh=None")
+        out[f"{cd}_max_pcm_lsb"] = worst
+    return out
+
+
+def multi_device_phase(out_dir: str, scale: float, card: str) -> dict:
+    """The mesh paths on the card, against the same work without a mesh in
+    a new process: an NCCL world of one rank (stage-1 steps and synthesis
+    equal to ``mesh=None``, 0 LSB, and what the mesh costs the host), then
+    two gloo ranks sharing the card ((2, 1) and (1, 2) stage-1 steps, a
+    (2, 1) GAN step, batch 64 × 512 sharded over 'data' within 1 LSB, the
+    dry run). Returns the kernels' launches in the worlds."""
+    import multiprocessing
+
+    from m2tts_tpu_torch.parallel.mesh import spawn_world
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        plain = pool.apply(md_no_mesh, (out_dir, scale))
+    t_nccl = time.perf_counter()
+    nccl = spawn_world(md_world1_rank, 1, args=(out_dir, scale),
+                       backend="nccl", device="cuda", timeout=300)[0]
+    t_gloo = time.perf_counter()
+    gloo = spawn_world(md_gloo_rank, 2, args=(out_dir, scale),
+                       backend="gloo", device="cuda", timeout=400)
+    t_end = time.perf_counter()
+    if nccl["backend"] != "nccl" or any(r["backend"] != "gloo"
+                                         for r in gloo):
+        raise RuntimeError("a world ran on another backend than asked")
+
+    faults: list = []
+    world1_tol = {"rtol": TRAIN_VS_CPU["loss_rel"], "atol": 0}
+    world1 = {
+        # the card's own spread: the same steps twice without a mesh
+        "stage1_no_mesh_twice": _md_steps(plain["stage1_again"],
+                                          plain["stage1"], world1_tol,
+                                          "no mesh, twice", faults),
+        "stage1": _md_steps(nccl["stage1"], plain["stage1"], world1_tol,
+                            "world 1 (1, 1) stage 1", faults),
+        "synth_8": _md_synth(nccl["synth"], plain["synth"], 0,
+                             "world 1 (1, 1) synthesis", faults),
+        "synth_64": _md_synth(nccl["synth64"], plain["synth64"], 0,
+                              "world 1 (1, 1) batch 64", faults),
+        "ms_per_step": {"mesh": nccl["stage1"]["ms_per_step"],
+                        "no_mesh": plain["stage1"]["ms_per_step"]},
+        "ms_per_batch64_bf16": {"mesh": nccl["synth64"]["ms_per_batch"],
+                                "no_mesh": plain["synth64"]["ms_per_batch"]},
+        "launches": {k: nccl["synth"]["launches"][k]
+                     + nccl["synth64"]["launches"][k] for k in Counters.NAMES},
+        "seconds": t_gloo - t_nccl}
+    world2 = {"ranks": []}
+    for r, res in enumerate(gloo):
+        s2 = res["stage2_2x1"]
+        for k, v in plain["stage2"].items():
+            if abs(s2[k] - v) > MD_LOSS["atol"] + MD_LOSS["rtol"] * abs(v):
+                faults.append(f"(2, 1) GAN step {k}: {s2[k]} against {v}")
+        world2["ranks"].append({
+            "device": res["device"],
+            **{key: _md_steps(res[key], plain["stage1"], MD_LOSS,
+                              f"gloo {key} rank {r}", faults)
+               for key in ("stage1_2x1", "stage1_1x2")},
+            "stage2_2x1_max_rel": max(
+                abs(s2[k] - v) / max(abs(v), 1e-30)
+                for k, v in plain["stage2"].items()),
+            "synth64_2x1": _md_synth(res["synth64"], plain["synth64"], 1,
+                                     f"gloo (2, 1) batch 64 rank {r}",
+                                     faults),
+            "launches": res["synth64"]["launches"],
+            "dryrun": res["dryrun"]})
+    world2["seconds"] = t_end - t_gloo
+    launches = {k: world1["launches"][k]
+                + sum(r["launches"][k] for r in world2["ranks"])
+                for k in Counters.NAMES}
+    out = {"phase": "multi_device", "card": card,
+           "nccl_world_1": world1, "gloo_world_2_on_one_card": world2,
+           "launches": launches, "batch64_shape": [64, 512, 80],
+           "bars": {"world_1_loss_rel": TRAIN_VS_CPU["loss_rel"],
+                    "loss": MD_LOSS,
+                    "params_abs": MD_PARAMS_ATOL,
+                    "pcm_lsb": {"world_1": 0, "gloo_2x1": 1}},
+           "faults": faults, "seconds": time.perf_counter() - t0,
+           "reference_seconds": t_nccl - t0}
+    emit(out)
+    if faults:
+        raise RuntimeError(f"multi_device: {faults}")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the mesh paths skipped a kernel: {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2158,7 +2457,11 @@ def main() -> int:
             stage1_dir, f"{tdir}/corpus", card, counters)["launches"]
         device_info_phase(card)
 
-    # ---- 9. kernels line, then the result
+        # ---- 9. the mesh paths, in worlds of processes spawned here
+        paths["multi_device"] = multi_device_phase(tdir, scale,
+                                                   card)["launches"]
+
+    # ---- 10. kernels line, then the result
     def launched(name):
         return {"launches": sum(c[name] for c in paths.values()),
                 "paths": [p for p, c in paths.items() if c[name]],

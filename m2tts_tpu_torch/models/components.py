@@ -9,16 +9,24 @@ Convolutions transpose to torch's ``[B, C, T]`` internally.
 Every LayerNorm uses eps 1e-6, flax's default (torch's is 1e-5). Dropout
 draws its mask from a generator the caller sets (``Dropout.generator``), so
 a trainer can make the noise of a step a function of the step.
+
+On a device mesh (``parallel/partition.py::shard_module``) a ``Dropout``
+draws the global batch's mask and keeps this rank's slice, and with a
+'model' axis above one the attention and FFN run this rank's heads and
+columns (``tp_group``) and sum the partial outputs over 'model'. Without a
+mesh none of that is set and the plain path runs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from m2tts_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 
@@ -51,18 +59,29 @@ class Dropout(nn.Module):
     probability 1 - p and divide the kept ones by 1 - p, in the input's
     dtype. The mask comes from ``self.generator`` (a ``torch.Generator`` on
     the input's device; the device's default generator when None). The
-    identity in ``eval()`` and at p = 0."""
+    identity in ``eval()`` and at p = 0.
+
+    ``shard`` (set on a mesh) lists ``(dim, index, count)``: ``x`` is slice
+    ``index`` of ``count`` along ``dim`` of the global tensor, so the mask is
+    drawn at the global shape and sliced, and every layout of the mesh draws
+    the same global mask."""
 
     def __init__(self, p: float = 0.1):
         super().__init__()
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[List[Tuple[int, int, int]]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        shape = list(x.shape)
+        for dim, _, count in self.shard or ():
+            shape[dim] *= count
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        for dim, index, _ in self.shard or ():
+            u = u.narrow(dim, index * x.shape[dim], x.shape[dim])
+        keep = u >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -70,7 +89,12 @@ class MultiHeadSelfAttention(nn.Module):
     """Fused-QKV self-attention (no QKV bias, features laid out
     ``(3, heads, head_dim)``). Scores at padded keys are REPLACED by -1e9,
     so a row whose keys are all padding (a length-0 pad row of a batch
-    bucket) gets a uniform softmax, as in the JAX ``jnp.where``."""
+    bucket) gets a uniform softmax, as in the JAX ``jnp.where``.
+
+    With ``tp_group`` this rank holds whole heads: ``qkv.weight`` is its
+    ``[3, heads·head_dim, hidden]`` slice and ``out.weight`` the matching
+    ``[hidden, heads·head_dim]`` columns, whose products are summed over
+    the group before the bias."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  dropout_rate: float = 0.1):
@@ -80,33 +104,50 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden_dim, 3 * hidden_dim, bias=False)
         self.dropout = Dropout(dropout_rate)
         self.out = nn.Linear(hidden_dim, hidden_dim)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, _ = x.shape
-        nh = self.num_heads
-        hd = self.hidden_dim // nh
-        qkv = self.qkv(x).reshape(B, S, 3, nh, hd)
+        hd = self.hidden_dim // self.num_heads
+        if self.tp_group is None:
+            qkv = self.qkv(x)
+        else:
+            w = self.qkv.weight
+            qkv = F.linear(copy_to_model(x, self.tp_group),
+                           w.reshape(-1, w.shape[-1]))
+        nh = qkv.shape[-1] // (3 * hd)  # this rank's heads
+        qkv = qkv.reshape(B, S, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B,nh,S,hd]
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None, None, :], -1e9)
         attn = self.dropout(torch.softmax(scores, dim=-1))
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, S, self.hidden_dim)
-        return self.out(out)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, S, nh * hd)
+        if self.tp_group is None:
+            return self.out(out)
+        return reduce_from_model(F.linear(out, self.out.weight),
+                                 self.tp_group) + self.out.bias
 
 
 class FeedForward(nn.Module):
-    """2-layer ReLU MLP with interior dropout."""
+    """2-layer ReLU MLP with interior dropout. With ``tp_group`` this rank
+    holds a slice of the inner columns (fc1's rows, fc2's columns) and the
+    partial outputs are summed over the group before fc2's bias."""
 
     def __init__(self, hidden_dim: int, ffn_dim: int, dropout_rate: float = 0.1):
         super().__init__()
         self.fc1 = nn.Linear(hidden_dim, ffn_dim)
         self.dropout = Dropout(dropout_rate)
         self.fc2 = nn.Linear(ffn_dim, hidden_dim)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.dropout(F.relu(self.fc1(x))))
+        if self.tp_group is None:
+            return self.fc2(self.dropout(F.relu(self.fc1(x))))
+        h = self.dropout(F.relu(self.fc1(copy_to_model(x, self.tp_group))))
+        return reduce_from_model(F.linear(h, self.fc2.weight),
+                                 self.tp_group) + self.fc2.bias
 
 
 class TransformerEncoderLayer(nn.Module):

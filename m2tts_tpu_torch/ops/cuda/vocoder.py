@@ -40,6 +40,7 @@ from typing import Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from m2tts_tpu_torch.ops.vocoder_mm import (DTYPES, vocoder_mm_forward,
                                             vocoder_mm_stage)
@@ -488,6 +489,15 @@ def _tc_launch(x: torch.Tensor, st: Dict, ops: Dict) -> torch.Tensor:
     return out
 
 
+def _check_plain(x: torch.Tensor, packed: Dict) -> None:
+    """The kernels read raw pointers: a DTensor (of a mesh) must come as its
+    local tensor."""
+    if isinstance(x, DTensor) or isinstance(packed["input_conv"]["w"],
+                                            DTensor):
+        raise TypeError("the vocoder kernels take plain tensors; pass a "
+                        "DTensor's local tensor (DTensor.to_local())")
+
+
 def _check_mel(mel: torch.Tensor, packed: Dict, compute_dtype: str) -> None:
     if compute_dtype not in DTYPES:
         raise ValueError(f"Unknown compute_dtype {compute_dtype!r}")
@@ -518,6 +528,7 @@ def fused_vocoder_forward(mel: torch.Tensor, packed: Dict,
     launch per stage on the current CUDA stream without synchronising; the
     output and the stage intermediates are allocated with ``torch.empty``.
     """
+    _check_plain(mel, packed)
     _check_mel(mel, packed, compute_dtype)
     rates = tuple(int(r) for r in rates)
     if tuple(st["tconv"]["rate"] for st in packed["stages"]) != rates:
@@ -538,6 +549,7 @@ def fused_vocoder_stage(x: torch.Tensor, packed: Dict, index: int,
     ``vocoder_mm_stage``: x is the f32 mel (first stage) or activations
     [B, T, C] in the compute dtype; returns the next activations, or the f32
     audio (last stage)."""
+    _check_plain(x, packed)
     stages = packed["stages"]
     first, last = index == 0, index == len(stages) - 1
     dt = DTYPES[compute_dtype]

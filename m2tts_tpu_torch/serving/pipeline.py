@@ -12,6 +12,13 @@ a (batch, text, frames) bucket from a small set:
 
 PyTorch runs eagerly, so a bucket is a set of shapes, not a compiled
 graph; ``warmup`` runs each reachable shape once.
+
+With ``mesh=`` (a ('data', 'model') ``DeviceMesh``) the Synthesizer is SPMD:
+every rank calls the same method with the same texts, runs its rows of the
+bucket (the transformer split over 'model' by the TP rules) and gathers
+the results, so every rank returns the single-device result. A server's
+rank 0 ``lead``s: each device call is first broadcast to the other ranks,
+which run ``serve_followers``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from m2tts_tpu_torch.models.tts_model import M2TTS, build_model, init_params
 from m2tts_tpu_torch.ops.audio_codec import mulaw_decode_np, mulaw_encode_pcm16
 from m2tts_tpu_torch.ops.vocoder_mm import (DTYPES, pack_vocoder_weights,
                                             vocoder_mm_forward)
+from m2tts_tpu_torch.parallel import mesh as pmesh
+from m2tts_tpu_torch.parallel import partition
 from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import resolve_device
@@ -194,7 +203,8 @@ def quantize_pcm16(audio: torch.Tensor) -> torch.Tensor:
 
 
 class Synthesizer:
-    """Bucketed text→waveform engine over one model on one device."""
+    """Bucketed text→waveform engine over one model on one device (or, with
+    ``mesh``, on each rank of a mesh)."""
 
     def __init__(self, model: M2TTS,
                  text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
@@ -202,7 +212,7 @@ class Synthesizer:
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
                  sample_rate: int = 22050, hop_length: int = 256,
                  extra_lexicon=None, vocoder_backend: str = "auto",
-                 compute_dtype: str = "auto", device="cuda"):
+                 compute_dtype: str = "auto", device="cuda", mesh=None):
         """``vocoder_backend``: 'torch' (the ``Vocoder`` module), 'mm' (the
         packed-matmul plain version of the fused kernel), 'cuda' (the fused
         kernel, ``ops/cuda/vocoder.py``) or 'auto' ('cuda' when the model
@@ -217,9 +227,28 @@ class Synthesizer:
 
         ``device`` defaults to CUDA and raises without it; the model is
         moved there.
+
+        ``mesh``: batches shard over 'data' (every batch bucket must divide
+        by it), the weights are broadcast from the mesh's first rank and
+        placed by the TP rules (``parallel/partition.py``); the model then
+        holds this rank's local tensors. Synthesis is per utterance, so the
+        gathered results are the single-device results.
         """
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        self._lead = False
+        if mesh is not None:
+            n_data = pmesh.batch_sharding(mesh)[1]
+            bad = [b for b in batch_buckets if b % n_data]
+            if bad:
+                raise ValueError(
+                    f"batch buckets {bad} not divisible by the mesh 'data' "
+                    f"axis ({n_data}); pass batch_buckets that shard evenly")
+            pmesh.replicate_tree(self.model.state_dict(), mesh)
+            self._global = {k: (tuple(v.shape), v.dtype)
+                            for k, v in self.model.state_dict().items()}
+            partition.local_module(partition.shard_module(self.model, mesh))
         self.text_buckets = tuple(text_buckets)
         self.frame_buckets = tuple(frame_buckets)
         self.batch_buckets = tuple(batch_buckets)
@@ -246,13 +275,25 @@ class Synthesizer:
         if self.compute_dtype == "f32":
             return self.model
         if self._bf16_model is None:
-            self._bf16_model = copy.deepcopy(self.model).to(torch.bfloat16)
+            # the copy shares the mesh's process groups
+            groups = {id(m.tp_group): m.tp_group for m in self.model.modules()
+                      if getattr(m, "tp_group", None) is not None}
+            self._bf16_model = copy.deepcopy(self.model, groups).to(
+                torch.bfloat16)
         return self._bf16_model
 
     # -- device work --------------------------------------------------------
     def _to_device(self, packed: np.ndarray):
+        """A packed host batch on the device: on a mesh, this rank's rows."""
+        if self.mesh is not None:
+            packed = pmesh.rows(packed, *pmesh.batch_sharding(self.mesh))
         t = torch.from_numpy(packed).to(self.device, non_blocking=True)
         return t[:, :-1], t[:, -1]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a result, whole (as it is without a
+        mesh)."""
+        return t if self.mesh is None else pmesh.all_gather_rows(t, self.mesh)
 
     @torch.no_grad()
     def predict_frames(self, ids: np.ndarray, lengths: np.ndarray,
@@ -260,8 +301,8 @@ class Synthesizer:
         """Per-utterance frame counts from the f32 duration probe."""
         packed = np.concatenate([np.asarray(ids, np.int32),
                                  np.asarray(lengths, np.int32)[:, None]], 1)
-        return self._probe(*self._to_device(packed),
-                           duration_scale).cpu().numpy()
+        return self._gather(self._probe(*self._to_device(packed),
+                                        duration_scale)).cpu().numpy()
 
     def _probe(self, ids, lengths, duration_scale: float) -> torch.Tensor:
         return probe_frames(self.model, ids, lengths, torch.tensor(
@@ -288,19 +329,24 @@ class Synthesizer:
     def _launch(self, texts: List[str], duration_scale: float,
                 max_frames: Optional[int], want_mel: bool,
                 pcm_format: str = "int16"):
-        """Enqueue one batch on the device; returns (outputs, max_frames)."""
+        """Enqueue one batch on the device; returns (outputs, max_frames).
+        A leader first sends the call to its followers."""
         if pcm_format not in ("int16", "mulaw"):
             raise ValueError(f"Unknown pcm_format {pcm_format!r}")
         packed = encode_packed_batch(self.text_processor, texts,
                                      self.batch_buckets, self.text_buckets)
+        self._announce("launch", texts, duration_scale, max_frames, want_mel,
+                       pcm_format)
         ids, lengths = self._to_device(packed)
         if max_frames is None:
-            totals = self._probe(ids, lengths, duration_scale).cpu().numpy()
+            # every rank sees every row's count, so all pick one bucket
+            totals = self._gather(self._probe(ids, lengths,
+                                              duration_scale)).cpu().numpy()
             max_frames = _bucket_for(int(totals[: len(texts)].max()),
                                      self.frame_buckets)
         out = self._run(ids, lengths, duration_scale, max_frames, want_mel,
                         pcm_format)
-        return out, max_frames
+        return {k: self._gather(v) for k, v in out.items()}, max_frames
 
     def _collect(self, out, max_frames: int, n: int, want_mel: bool,
                  pcm_only: bool = False) -> List[Dict[str, np.ndarray]]:
@@ -388,8 +434,12 @@ class Synthesizer:
     def swap_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Replace the serving weights with a state dict of identical keys,
         shapes and dtypes; every derived copy (bf16 model, packed vocoder
-        weights) is dropped and rebuilt from the new weights."""
-        current = self.model.state_dict()
+        weights) is dropped and rebuilt from the new weights. On a mesh the
+        global weights are placed as at construction (a leader sends them
+        to its followers once they pass the checks here)."""
+        current = (self.model.state_dict() if self.mesh is None else
+                   {k: torch.empty(s, dtype=d, device="meta")
+                    for k, (s, d) in self._global.items()})
         if set(state_dict) != set(current):
             raise ValueError(
                 "state dict keys differ: missing "
@@ -401,8 +451,46 @@ class Synthesizer:
                 raise ValueError(
                     f"param {k} mismatch: got {tuple(v.shape)}/{v.dtype}, "
                     f"serving {tuple(current[k].shape)}/{current[k].dtype}")
+        self._announce("swap_params", state_dict)
+        if self.mesh is not None:
+            state_dict = partition.local_tree(
+                partition.shard_tree(state_dict, self.mesh))
         self.model.load_state_dict(state_dict)
         self._drop_caches()
+
+    # -- SPMD serving on a mesh ---------------------------------------------
+    def lead(self) -> None:
+        """Make this rank (rank 0) the leader: every device call is
+        broadcast to the followers before it runs here."""
+        if self.mesh is None:
+            raise ValueError("lead() needs a Synthesizer on a mesh")
+        self._lead = True
+
+    def _announce(self, *call) -> None:
+        if self._lead:
+            pmesh.broadcast_object(call)
+
+    def serve_followers(self) -> None:
+        """A follower rank's loop: run each call the leader announces (a
+        batch launch, a weight swap) until it sends ``stop``. A call that
+        fails here is logged and the loop goes on, as the leader's server
+        answers the request with an error and goes on serving."""
+        calls = {"launch": self._launch, "swap_params": self.swap_params}
+        while True:
+            name, *args = pmesh.broadcast_object(None)
+            if name == "stop":
+                return
+            try:
+                if name not in calls:
+                    raise ValueError(f"unknown call {name!r} from the leader")
+                calls[name](*args)
+            except Exception:
+                logger.exception("follower: the leader's %r call failed",
+                                 name)
+
+    def stop_followers(self) -> None:
+        """End the followers' loops (the leader's last call)."""
+        self._announce("stop")
 
     def synthesize_long(self, text: str, duration_scale: float = 1.0,
                         gap_ms: float = 120.0) -> Dict[str, np.ndarray]:
@@ -456,11 +544,15 @@ class Synthesizer:
 
     def reachable_shapes(self, full: bool = True):
         """Every (batch, text, frames) shape a request can select;
-        ``full=False`` keeps the smallest batch bucket only."""
+        ``full=False`` keeps the smallest batch bucket only. On a mesh only
+        batches that split over 'data' (every bucket does)."""
         single = min(self.batch_buckets)
         batches = list(self.batch_buckets) if full else []
         if single not in batches:
             batches = [single] + batches
+        if self.mesh is not None:
+            n_data = pmesh.batch_sharding(self.mesh)[1]
+            batches = [b for b in batches if b % n_data == 0]
         return [(b, t, f) for b in batches for t in self.text_buckets
                 for f in self.frame_buckets]
 

@@ -30,6 +30,17 @@ concurrent streams share batched calls through a ``StreamBatcher``.
 ``--random-init`` without ``--config`` serves the flagship model
 (``FLAGSHIP_MODEL``) with seeded random weights; ``--config`` reads a YAML
 config (needs PyYAML).
+
+``--data-parallel N`` shards each request batch over N devices, one
+process each, launched by torchrun (batch buckets ``(N, 4N, 16N)``, as
+``scripts/serve.py``):
+
+    torchrun --nproc-per-node 2 -m m2tts_tpu_torch.serving.server \
+        --random-init --data-parallel 2 --port 8080
+
+Rank 0 serves HTTP and the batchers and broadcasts each batch call (and
+``/reload``'s weights) to the other ranks, which follow
+(``Synthesizer.serve_followers``). Streams run on rank 0's device alone.
 """
 
 from __future__ import annotations
@@ -385,9 +396,17 @@ def make_handler(synth, info, stream_chunk_frames: int = 64,
 
 
 def build_synthesizer(args):
-    """The ``Synthesizer`` the flags ask for."""
+    """The ``Synthesizer`` the flags ask for; with ``--data-parallel N`` on
+    an N-rank data mesh (every rank calls this)."""
     kwargs = {"compute_dtype": args.compute_dtype,
               "vocoder_backend": args.vocoder_backend, "device": args.device}
+    n = args.data_parallel
+    if n > 1:
+        from m2tts_tpu_torch.parallel.mesh import make_mesh
+
+        kwargs["mesh"] = make_mesh(data=n, device_type=torch.device(
+            args.device).type)
+        kwargs["batch_buckets"] = (n, 4 * n, 16 * n)
     if args.checkpoint:
         return pipeline.from_checkpoint(args.checkpoint, **kwargs)
     if args.torch_checkpoint:
@@ -429,6 +448,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=("auto", "bf16", "f32"),
                    help="synthesis compute dtype (auto = bf16 on CUDA)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--data-parallel", type=int, default=1, metavar="N",
+                   help="shard request batches over N devices, one process "
+                        "each (launch with torchrun --nproc-per-node N)")
     p.add_argument("--stream-chunk-frames", type=int, default=64,
                    help="mel frames per /synthesize_stream vocoder chunk")
     p.add_argument("--dynamic-batch", action="store_true",
@@ -450,11 +472,32 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.data_parallel > 1:
+        import torch.distributed as dist
+
+        from m2tts_tpu_torch.parallel.mesh import init_distributed
+
+        args.device = str(init_distributed(args.device))
+        try:
+            return _serve(args, dist.get_rank())
+        finally:
+            dist.destroy_process_group()
+    return _serve(args, 0)
+
+
+def _serve(args, rank: int) -> int:
+    """Rank 0 serves HTTP (leading the other ranks on a mesh); every other
+    rank follows it until it stops."""
     synth = build_synthesizer(args)
     if args.warmup or args.warmup_all:
         n = synth.warmup(full=args.warmup_all)
         print(f"warmed {n} serving shapes", flush=True)
-    info = device_info(synth)
+    if rank:
+        synth.serve_followers()
+        return 0
+    if synth.mesh is not None:
+        synth.lead()
+    info = {**device_info(synth), "data_parallel": args.data_parallel}
     server = ThreadingHTTPServer(
         (args.host, args.port),
         make_handler(synth, info,
@@ -470,6 +513,8 @@ def main(argv=None) -> int:
         pass
     finally:
         server.server_close()
+        if synth.mesh is not None:
+            synth.stop_followers()
     return 0
 
 

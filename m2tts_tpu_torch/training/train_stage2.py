@@ -8,7 +8,11 @@ with configs/stage2_quality.yaml's recipe (``STAGE2_TRAINING``, no YAML
 parser needed), data-free when ``data.data_dir`` holds no corpus. Warm-start
 the generator from a stage-1 checkpoint with
 ``training.init_generator_from=<checkpoint dir>``. Runs on CUDA unless
-``--device cpu``.
+``--device cpu``; on several devices under torchrun, as
+``training/train.py`` says:
+
+    torchrun --nproc-per-node 2 -m m2tts_tpu_torch.training.train_stage2 \
+        system.mesh.data=2
 """
 
 from __future__ import annotations
@@ -16,8 +20,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-import torch
 
 
 def build_config(config_path=None, overrides=()):
@@ -46,18 +48,11 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
+    from m2tts_tpu_torch.training.train import run
     from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
 
-    config = build_config(args.config, args.overrides)
-    trainer = Stage2Trainer(config, device=args.device)
-    dev = trainer.device
-    logging.info("Device: %s%s", dev, f" ({torch.cuda.get_device_name(dev)})"
-                 if dev.type == "cuda" else "")
-    try:
-        trainer.train(resume=args.resume)
-    finally:
-        trainer.close()
-    return 0
+    return run(Stage2Trainer, build_config(args.config, args.overrides),
+               args.device, args.resume)
 
 
 if __name__ == "__main__":

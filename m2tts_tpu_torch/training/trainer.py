@@ -29,8 +29,18 @@ arithmetic:
 
 The state a checkpoint holds is ``{"params": state_dict, "opt_state":
 Optimizer.state_dict(), "step": int}``; ``utils.checkpoint.load_for_inference``
-and ``serving.pipeline.from_checkpoint`` serve it as it is. One device only:
-a data or model mesh axis above 1 waits for ROADMAP item 12.
+and ``serving.pipeline.from_checkpoint`` serve it as it is.
+
+On a ('data', 'model') mesh (``mesh=``, or ``system.mesh`` under
+``torchrun``; ``parallel/``) every rank iterates the same seeded global
+batches and keeps its rows; every parameter is a DTensor (TP rules on the
+transformer blocks, ``Replicate()`` elsewhere), the forward runs on their
+local tensors, and gradients and losses are averaged over 'data' (each
+loss is a mean over equal shards, so the mean of the ranks' means is the
+global mean). Checkpoints hold the gathered global weights in the
+single-device format, written by rank 0 alone, as are the logs and
+``best/``; validation losses are averaged over 'data', so every rank
+sees the same. Without a mesh none of this runs.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from m2tts_tpu_torch.data.dataset import (DummyDataset, TTSDataset,
                                           data_iterator, make_batches)
@@ -51,6 +63,8 @@ from m2tts_tpu_torch.data.prefetch import BatchTransfer, DevicePrefetcher
 from m2tts_tpu_torch.frontend.audio import AudioProcessor
 from m2tts_tpu_torch.models.components import Dropout
 from m2tts_tpu_torch.models.tts_model import build_model, init_params
+from m2tts_tpu_torch.parallel import mesh as pmesh
+from m2tts_tpu_torch.parallel import partition
 from m2tts_tpu_torch.training.losses import stage1_losses
 from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import Config
@@ -147,9 +161,13 @@ def make_lr_schedule(cfg) -> Callable[[int], float]:
 # -- the optimizer ---------------------------------------------------------
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, on their device."""
+    """sqrt of the sum of squares over all tensors, on their device (of the
+    global tensors for DTensors: ``partition.global_norm``)."""
+    tensors = list(tensors)
+    if tensors and isinstance(tensors[0], DTensor):
+        return partition.global_norm(tensors)
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        list(tensors))))
+        tensors)))
 
 
 class Optimizer:
@@ -243,6 +261,13 @@ class Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
+        """Global tensors (a checkpoint's) are placed as each parameter is:
+        copied to its device, or sharded as its DTensor."""
+        def like(t, p):
+            if isinstance(p, DTensor):
+                return partition.shard_like(t, p)
+            return t.to(p.device, p.dtype, copy=True)
+
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
         self.adamw.state.clear()
@@ -251,14 +276,12 @@ class Optimizer:
                 self.adamw.state[p] = {
                     "step": torch.tensor(float(self.count),
                                          dtype=torch.float32),
-                    "exp_avg": state["mu"][n].to(p.device, p.dtype,
-                                                 copy=True),
-                    "exp_avg_sq": state["nu"][n].to(p.device, p.dtype,
-                                                    copy=True)}
+                    "exp_avg": like(state["mu"][n], p),
+                    "exp_avg_sq": like(state["nu"][n], p)}
         if self.acc is not None:
             acc = state.get("acc_grads")
             for n, a in zip(self.names, self.acc):
-                a.copy_(acc[n]) if acc else a.zero_()
+                a.copy_(like(acc[n], a)) if acc else a.zero_()
 
 
 def build_dataset(cfg, keep_audio: bool = False):
@@ -291,6 +314,18 @@ def build_dataset(cfg, keep_audio: bool = False):
                         hop_length=int(cfg.get("hop_length", 256)))
 
 
+def _full(tree, mesh):
+    """``tree`` with every DTensor gathered to its global tensor on a mesh
+    (a collective); as it is without one."""
+    return tree if mesh is None else partition.full_tree(tree)
+
+
+def _rows(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global host batch (all of it without a
+    mesh)."""
+    return batch if mesh is None else pmesh.shard_batch(batch, mesh)
+
+
 def _to_host(tree):
     """A CPU copy of every tensor in a nest of dicts and lists."""
     if isinstance(tree, torch.Tensor):
@@ -303,18 +338,19 @@ def _to_host(tree):
 
 
 class Stage1Trainer:
-    """Acoustic-model training: masked mel L1 + duration MSE."""
+    """Acoustic-model training: masked mel L1 + duration MSE. ``mesh``: a
+    ('data', 'model') ``DeviceMesh`` (``parallel.mesh.make_mesh``).
+    ``mesh=None`` is the single-device path only without a process group:
+    under one (torchrun) the mesh is built from ``system.mesh``, the whole
+    world by default."""
 
-    def __init__(self, config: Config, dataset=None, device="cuda"):
+    def __init__(self, config: Config, dataset=None, device="cuda",
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
-        data_axis = int(config.get("system.mesh.data", -1))
-        model_axis = int(config.get("system.mesh.model", 1))
-        if data_axis not in (-1, 1) or model_axis != 1:
-            raise NotImplementedError(
-                f"system.mesh data={data_axis} model={model_axis}: training "
-                "runs on one device until multi-GPU (ROADMAP item 12) is "
-                "ported; set data to 1 or -1 and model to 1")
+        self.mesh = (mesh if mesh is not None
+                     else pmesh.mesh_from_config(config, self.device))
+        self.is_main = self.mesh is None or dist.get_rank() == 0
         tcfg = config.get("training", Config())
         self.max_steps = int(tcfg.get("max_steps", 10000))
         self.batch_size = int(tcfg.get("batch_size", 32))
@@ -341,6 +377,14 @@ class Stage1Trainer:
         self.model = init_params(build_model(self.model_config),
                                  torch.Generator().manual_seed(self.seed),
                                  self.device).train()
+        if self.mesh is not None:
+            n_data = pmesh.batch_sharding(self.mesh)[1]
+            if self.batch_size % n_data:
+                raise ValueError(f"training.batch_size {self.batch_size} not "
+                                 f"divisible by the mesh 'data' axis "
+                                 f"({n_data})")
+            pmesh.replicate_tree(self.model.state_dict(), self.mesh)
+            partition.shard_module(self.model, self.mesh)
         self.dataset = dataset if dataset is not None else build_dataset(
             config.get("data", Config()))
         self.buckets = [tuple(b) for b in config.get(
@@ -360,7 +404,8 @@ class Stage1Trainer:
             max_to_keep=int(tcfg.get("max_checkpoints", 5)))
         self.metrics = MetricsLogger(
             config.get("paths.log_dir", out_dir / "logs"),
-            backend=config.get("system.log_metrics", "csv"),
+            backend=(config.get("system.log_metrics", "csv") if self.is_main
+                     else "none"),
             wandb_project=config.get("system.wandb_project"),
             run_name=config.get("system.run_name"))
         self.memory = MemoryTracker(self.device)
@@ -395,12 +440,16 @@ class Stage1Trainer:
 
     # -- state -------------------------------------------------------------
     def _host_state_copy(self) -> Dict:
-        return {"params": _to_host(self.model.state_dict()),
-                "opt_state": _to_host(self.optimizer.state_dict()),
+        return {"params": _to_host(_full(self.model.state_dict(), self.mesh)),
+                "opt_state": _to_host(_full(self.optimizer.state_dict(),
+                                            self.mesh)),
                 "step": self.step}
 
     def _restore(self, state: Dict, step: int) -> None:
-        self.model.load_state_dict(state["params"])
+        params = state["params"]
+        if self.mesh is not None:
+            params = partition.shard_tree(params, self.mesh)
+        self.model.load_state_dict(params)
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(step)
 
@@ -438,10 +487,11 @@ class Stage1Trainer:
         args = (batch["phoneme_ids"], batch["text_lengths"],
                 batch["durations"])
         kwargs = {"max_frames": batch["mel"].shape[1]}
-        if self.bf16:
+        if self.bf16 or self.mesh is not None:
+            params = {n: pmesh.local(p)
+                      for n, p in self.model.named_parameters()}
             out = torch.func.functional_call(
-                self.model,
-                cast_params_bf16(dict(self.model.named_parameters())),
+                self.model, cast_params_bf16(params) if self.bf16 else params,
                 args, kwargs)
         else:
             out = self.model(*args, **kwargs)
@@ -460,6 +510,9 @@ class Stage1Trainer:
         grads = torch.autograd.grad(loss, self._params,
                                     materialize_grads=True)
         losses = {k: v.detach() for k, v in losses.items()}
+        if self.mesh is not None:
+            losses = pmesh.mean_dict_over(losses, self.mesh)
+            pmesh.mean_over(grads, self.mesh)
         losses["grad_norm"] = global_norm(grads)
         return losses, grads
 
@@ -475,6 +528,8 @@ class Stage1Trainer:
         try:
             losses, grads = self._forward_backward(batch)
         except torch.cuda.OutOfMemoryError:
+            if self.mesh is not None:  # the other ranks wait in a collective
+                raise
             # weights and optimizer untouched: drop the gradients, go on
             logger.error("OOM in the forward/backward pass at step %d; "
                          "clearing caches", self.step)
@@ -483,6 +538,8 @@ class Stage1Trainer:
         try:
             self.optimizer.update(grads)
         except torch.cuda.OutOfMemoryError:
+            if self.mesh is not None:
+                raise
             # the update may have written some tensors: restore all
             del grads
             self._clear_cache()
@@ -499,13 +556,16 @@ class Stage1Trainer:
                    ) -> Dict[str, torch.Tensor]:
         self.model.eval()
         try:
-            return self._loss_fn(batch)[1]
+            losses = self._loss_fn(batch)[1]
         finally:
             self.model.train()
+        if self.mesh is not None:
+            losses = pmesh.mean_dict_over(losses, self.mesh)
+        return losses
 
     # -- loop --------------------------------------------------------------
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return self._transfer.transfer(batch)
+        return self._transfer.transfer(_rows(batch, self.mesh))
 
     def _device_cached_iterator(self):
         """Infinite iterator over device-resident batches (one copy each,
@@ -536,11 +596,11 @@ class Stage1Trainer:
         it = self._device_cached_iterator() if self.device_data_cache else None
         if it is None:
             depth = int(self.config.get("data.prefetch", 2))
-            source = data_iterator(self.dataset, self.batch_size,
-                                   self.buckets, seed=self.seed)
+            source = (_rows(b, self.mesh) for b in data_iterator(
+                self.dataset, self.batch_size, self.buckets, seed=self.seed))
             it = (DevicePrefetcher(source, self._transfer.put, depth,
                                    ready_fn=self._transfer.ready)
-                  if depth > 0 else map(self._put, source))
+                  if depth > 0 else map(self._transfer.transfer, source))
         last: Dict[str, float] = {}
         t_last = time.perf_counter()
         try:
@@ -572,8 +632,7 @@ class Stage1Trainer:
                 if self.step % self.validate_every == 0:
                     val = self.validate()
                     if self.validate_samples:
-                        val.update(self.sample_validator.run(
-                            self.model.state_dict(), self.step))
+                        val.update(self._sample_metrics())
                     self.metrics.log({f"val_{k}": v for k, v in val.items()},
                                      self.step)
                     score = val.get("total_loss")
@@ -608,6 +667,14 @@ class Stage1Trainer:
                 break
         return {k: v / max(count, 1) for k, v in totals.items()}
 
+    def _sample_metrics(self) -> Dict[str, float]:
+        """The sample validator's WAVs and scores of the current weights,
+        made on rank 0 and sent to every rank."""
+        params = _full(self.model.state_dict(), self.mesh)
+        out = (self.sample_validator.run(params, self.step) if self.is_main
+               else None)
+        return out if self.mesh is None else pmesh.broadcast_object(out)
+
     def save_checkpoint(self) -> None:
         if self.step == 0:
             return
@@ -619,17 +686,20 @@ class Stage1Trainer:
                          "%d (blow-up not yet detected)", self.step)
             return
         self._oom_snapshot = (host_state, self.step)
-        self.ckpt.save(self.step, host_state, config=self.config)
+        if self.is_main:
+            self.ckpt.save(self.step, host_state, config=self.config)
 
     def save_best_checkpoint(self, score: float) -> None:
         """Pin the current state as the best-validation checkpoint under
         ``<ckpt_dir>/best`` (survives rotation; served by
         ``from_checkpoint(dir, step="best")``)."""
+        state = self._host_state_copy()
+        if not self.is_main:
+            return
         if self._best_ckpt is None:
             self._best_ckpt = CheckpointManager(
                 self.ckpt.directory / "best", max_to_keep=1)
-        self._best_ckpt.save(self.step, self._host_state_copy(),
-                             config=self.config,
+        self._best_ckpt.save(self.step, state, config=self.config,
                              metrics={"val_total_loss": float(score)})
         _write_best_score(self.ckpt.directory, self.step, score,
                           metric="val_total_loss")

@@ -47,7 +47,18 @@ A checkpoint holds ``{"generator", "g_opt_state", "discriminator",
 "d_opt_state", "step"}`` and ``generator_ema``; ``load_for_inference`` and
 ``serving.pipeline.from_checkpoint`` serve its EMA. The discriminator runs
 as plain convs whatever ``disc_lowering`` says (``packed`` is the same
-function re-lowered for the TPU). One device only.
+function re-lowered for the TPU).
+
+On a ('data', 'model') mesh (``mesh=``, or ``system.mesh`` under
+``torchrun``) the generator is placed by the TP rules and the
+discriminator, which no rule matches, is replicated, as in JAX; every
+weight, optimizer moment and EMA shadow is a DTensor. Each rank prepares
+the same global batch (windows and noise drawn over all its rows) and
+keeps its rows; gradients and losses are averaged over 'data', so the
+guards see the global discriminator loss. Validation gathers the scored
+weights and runs on rank 0 with an unsharded copy of the generator; every
+rank receives its metrics. Checkpoints hold the global weights, written
+by rank 0.
 """
 
 from __future__ import annotations
@@ -60,15 +71,19 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from m2tts_tpu_torch.data.dataset import data_iterator, make_batches
 from m2tts_tpu_torch.data.prefetch import BatchTransfer, DevicePrefetcher
 from m2tts_tpu_torch.models.components import Dropout
 from m2tts_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from m2tts_tpu_torch.models.tts_model import build_model, init_params
+from m2tts_tpu_torch.parallel import mesh as pmesh
+from m2tts_tpu_torch.parallel import partition
 from m2tts_tpu_torch.training import losses as L
 from m2tts_tpu_torch.training.losses import EarlyStopping
-from m2tts_tpu_torch.training.trainer import (Optimizer, _read_best_score,
+from m2tts_tpu_torch.training.trainer import (Optimizer, _full,
+                                              _read_best_score, _rows,
                                               _to_host, _write_best_score,
                                               build_dataset)
 from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
@@ -131,18 +146,18 @@ def _upcast(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 class Stage2Trainer:
-    """GAN training over the full text→waveform stack."""
+    """GAN training over the full text→waveform stack. ``mesh``: a
+    ('data', 'model') ``DeviceMesh``. ``mesh=None`` is the single-device
+    path only without a process group: under one (torchrun) the mesh is
+    built from ``system.mesh``, the whole world by default."""
 
-    def __init__(self, config: Config, dataset=None, device="cuda"):
+    def __init__(self, config: Config, dataset=None, device="cuda",
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
-        data_axis = int(config.get("system.mesh.data", -1))
-        model_axis = int(config.get("system.mesh.model", 1))
-        if data_axis not in (-1, 1) or model_axis != 1:
-            raise NotImplementedError(
-                f"system.mesh data={data_axis} model={model_axis}: training "
-                "runs on one device until multi-GPU (ROADMAP item 12) is "
-                "ported; set data to 1 or -1 and model to 1")
+        self.mesh = (mesh if mesh is not None
+                     else pmesh.mesh_from_config(config, self.device))
+        self.is_main = self.mesh is None or dist.get_rank() == 0
         tcfg = config.get("training", Config())
         self.max_steps = int(tcfg.get("max_steps", 50000))
         self.batch_size = int(tcfg.get("batch_size", 32))
@@ -216,6 +231,20 @@ class Stage2Trainer:
             self.model.load_state_dict(state_dict)
             logger.info("Generator warm-started from %s (step %d)",
                         init_from, from_step)
+        # validation's generator: on a mesh an unsharded copy on rank 0,
+        # which validates for all
+        self._eval_model = self.model
+        if self.mesh is not None:
+            n_data = pmesh.batch_sharding(self.mesh)[1]
+            if self.batch_size % n_data:
+                raise ValueError(f"training.batch_size {self.batch_size} not "
+                                 f"divisible by the mesh 'data' axis "
+                                 f"({n_data})")
+            self._eval_model = (build_model(config.get("model", Config())).to(
+                self.device).train() if self.is_main else None)
+            for net in (self.model, self.discriminator):
+                pmesh.replicate_tree(net.state_dict(), self.mesh)
+                partition.shard_module(net, self.mesh)
 
         opt_cfg = Config(_OPT_DEFAULTS).merge(tcfg)
         self.g_names = [n for n, _ in self.model.named_parameters()]
@@ -242,7 +271,8 @@ class Stage2Trainer:
             max_to_keep=int(tcfg.get("max_checkpoints", 10)))
         self.metrics = MetricsLogger(
             config.get("paths.log_dir", out_dir / "logs"),
-            backend=config.get("system.log_metrics", "csv"),
+            backend=(config.get("system.log_metrics", "csv") if self.is_main
+                     else "none"),
             wandb_project=config.get("system.wandb_project"),
             run_name=config.get("system.run_name"))
         self.memory = MemoryTracker(self.device)
@@ -275,31 +305,35 @@ class Stage2Trainer:
     # -- state -------------------------------------------------------------
     def _eval_params(self) -> Dict[str, torch.Tensor]:
         """The generator weights that validation, the gate and ``best/``
-        score: the EMA shadow when on, else the live weights."""
+        score: the EMA shadow when on, else the live weights (gathered to
+        the global tensors on a mesh)."""
         params = self.ema if self.ema is not None else self.g_params
-        return {n: p.detach() for n, p in zip(self.g_names, params)}
+        return _full({n: p.detach()
+                      for n, p in zip(self.g_names, params)}, self.mesh)
 
     def _host_state(self) -> Dict[str, Any]:
-        state = {"generator": _to_host(self.model.state_dict()),
-                 "g_opt_state": _to_host(self.g_opt.state_dict()),
-                 "discriminator": _to_host(self.discriminator.state_dict()),
-                 "d_opt_state": _to_host(self.d_opt.state_dict()),
+        state = {"generator": self.model.state_dict(),
+                 "g_opt_state": self.g_opt.state_dict(),
+                 "discriminator": self.discriminator.state_dict(),
+                 "d_opt_state": self.d_opt.state_dict(),
                  "step": self.step}
         if self.ema is not None:
-            state["generator_ema"] = _to_host(dict(zip(self.g_names,
-                                                       self.ema)))
-        return state
+            state["generator_ema"] = dict(zip(self.g_names, self.ema))
+        return _to_host(_full(state, self.mesh))
 
     @torch.no_grad()
     def _load_state(self, state: Dict[str, Any],
                     ema: Optional[Dict[str, torch.Tensor]]) -> None:
-        self.model.load_state_dict(state["generator"])
+        nets = {"generator": self.model, "discriminator": self.discriminator}
+        for key, net in nets.items():
+            net.load_state_dict(state[key] if self.mesh is None else
+                                partition.shard_tree(state[key], self.mesh))
         self.g_opt.load_state_dict(state["g_opt_state"])
-        self.discriminator.load_state_dict(state["discriminator"])
         self.d_opt.load_state_dict(state["d_opt_state"])
         if self.ema is not None:
             for n, e in zip(self.g_names, self.ema):
-                e.copy_(ema[n])
+                e.copy_(ema[n] if self.mesh is None
+                        else partition.shard_like(ema[n], e))
 
     def _snapshot(self) -> Tuple:
         return (self._host_state(), self.step, self.g_updates,
@@ -344,14 +378,25 @@ class Stage2Trainer:
               ) -> Dict[str, torch.Tensor]:
         return cast_params_bf16(params) if self.bf16 else params
 
+    @staticmethod
+    def _live(names: Sequence[str], params: Sequence[torch.Tensor],
+              detach: bool = False) -> Dict[str, torch.Tensor]:
+        """The tensors a forward runs on: each parameter, or on a mesh its
+        local tensor (differentiable unless ``detach``)."""
+        return {n: pmesh.local(p.detach() if detach else p)
+                for n, p in zip(names, params)}
+
     def _acoustic_and_segment(self, g_params: Dict[str, torch.Tensor],
-                              batch: Dict[str, torch.Tensor]):
+                              batch: Dict[str, torch.Tensor],
+                              model: Optional[torch.nn.Module] = None):
         """Teacher-forced text→mel, the target window of each row sliced
-        out, vocoded: (outputs, mel [B, T, C] f32, audio [B, S·U] f32)."""
+        out, vocoded: (outputs, mel [B, T, C] f32, audio [B, S·U] f32).
+        ``model`` defaults to the trained (on a mesh, sharded) generator."""
+        model = self.model if model is None else model
         p = self._cast(g_params)
         out = torch.func.functional_call(
-            self.model, p, (batch["phoneme_ids"], batch["text_lengths"],
-                            batch["durations"]),
+            model, p, (batch["phoneme_ids"], batch["text_lengths"],
+                       batch["durations"]),
             {"max_frames": batch["mel"].shape[1]})
         mel_pred = out["mel_output"]
         B, T, C = mel_pred.shape
@@ -363,7 +408,7 @@ class Stage2Trainer:
         mel_seg = torch.gather(mel_pred, 1, rows[..., None].expand(-1, -1, C))
         vocoder = {k[len("vocoder."):]: v for k, v in p.items()
                    if k.startswith("vocoder.")}
-        audio = torch.func.functional_call(self.model.vocoder, vocoder,
+        audio = torch.func.functional_call(model.vocoder, vocoder,
                                            (mel_seg,))[..., 0]
         return out, _f32(mel_pred), _f32(audio)
 
@@ -389,16 +434,20 @@ class Stage2Trainer:
         with torch.no_grad():
             self._noise.manual_seed(seed)
             _, _, fake = self._acoustic_and_segment(
-                dict(zip(self.g_names, self.g_params)), batch)
+                self._live(self.g_names, self.g_params), batch)
         B = fake.shape[0]
-        d_params = dict(zip(self.d_names, self.d_params))
+        d_params = self._live(self.d_names, self.d_params)
         logits = self._disc_apply(
             d_params, torch.cat([batch["audio_seg"], fake]), features=False)
         d_loss = L.lsgan_discriminator_loss([l[:B] for l in logits],
                                             [l[B:] for l in logits])
         grads = torch.autograd.grad(d_loss, self.d_params,
                                     materialize_grads=True)
-        return d_loss.detach(), grads
+        d_loss = d_loss.detach()
+        if self.mesh is not None:
+            d_loss = pmesh.mean_dict_over({"d": d_loss}, self.mesh)["d"]
+            pmesh.mean_over(grads, self.mesh)
+        return d_loss, grads
 
     def _g_losses(self, g_params: Dict[str, torch.Tensor],
                   batch: Dict[str, torch.Tensor], seed: int,
@@ -423,8 +472,7 @@ class Stage2Trainer:
         if self.weights["envelope_weight"] > 0:
             losses["envelope_loss"] = L.envelope_correlation_loss(
                 audio_pred, target, sample_rate=sr)
-        d_params = {n: p.detach() for n, p in zip(self.d_names,
-                                                   self.d_params)}
+        d_params = self._live(self.d_names, self.d_params, detach=True)
         # the fake half needs the backward; the real half is data, so its
         # features are constants and run forward only
         fake_logits, fake_feats = self._disc_apply(d_params, audio_pred)
@@ -453,11 +501,15 @@ class Stage2Trainer:
 
     def _g_loss_and_grads(self, batch: Dict[str, torch.Tensor], seed: int,
                           d_loss: Optional[torch.Tensor] = None):
-        total, losses = self._g_losses(dict(zip(self.g_names, self.g_params)),
-                                       batch, seed, d_loss)
+        total, losses = self._g_losses(
+            self._live(self.g_names, self.g_params), batch, seed, d_loss)
         grads = torch.autograd.grad(total, self.g_params,
                                     materialize_grads=True)
-        return {k: v.detach() for k, v in losses.items()}, grads
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self.mesh is not None:
+            losses = pmesh.mean_dict_over(losses, self.mesh)
+            pmesh.mean_over(grads, self.mesh)
+        return losses, grads
 
     def _d_update(self, grads: Sequence[torch.Tensor],
                   d_loss: torch.Tensor) -> None:
@@ -484,12 +536,16 @@ class Stage2Trainer:
                      ) -> Dict[str, torch.Tensor]:
         """A random window per row of the device-resident full waveform
         (at the vocoder's rate, ``upsample`` samples a frame): offsets in
-        [0, max(mel_len - seg_frames, 0)], drawn on the device."""
+        [0, max(mel_len - seg_frames, 0)], drawn on the device (over the
+        global batch on a mesh, then this rank's rows)."""
         self._offsets.manual_seed(self._noise_seed(step, _OFFSETS))
         mel_len = batch["mel_lengths"]
         max_off = torch.clamp(mel_len - self.seg_frames, min=0)
-        u = torch.rand(mel_len.shape, generator=self._offsets,
-                       device=mel_len.device)
+        index, count = ((0, 1) if self.mesh is None
+                        else pmesh.batch_sharding(self.mesh))
+        u = pmesh.rows(torch.rand((count * mel_len.shape[0],),
+                                  generator=self._offsets,
+                                  device=mel_len.device), index, count)
         offsets = torch.floor(u * (max_off + 1).float()).to(torch.int32)
         audio = _f32(batch["audio"])
         S = self.seg_frames * self.upsample
@@ -507,8 +563,9 @@ class Stage2Trainer:
         copied here). Returns the losses as device scalars; nothing waits
         for the device."""
         if isinstance(batch.get("mel"), np.ndarray):
-            batch = self._transfer.transfer(
-                batch if "audio_seg" in batch else self._prepare(batch))
+            batch = self._transfer.transfer(_rows(
+                batch if "audio_seg" in batch else self._prepare(batch),
+                self.mesh))
         batch = _upcast(batch)
         if "audio" in batch:  # device-cached: the window is cut here
             batch = self._slice_batch(batch, self.step)
@@ -534,6 +591,8 @@ class Stage2Trainer:
         try:
             return self.train_step(batch)
         except torch.cuda.OutOfMemoryError:
+            if self.mesh is not None:  # the other ranks wait in a collective
+                raise
             self._clear_cache()
             if self._updating:
                 logger.error("OOM in an update at step %d — restoring the "
@@ -588,7 +647,7 @@ class Stage2Trainer:
 
         def put(b):
             b = dict(b, audio=self._stage_audio(b["audio"], b["mel"].shape[1]))
-            return self._transfer.transfer(b)
+            return self._transfer.transfer(_rows(b, self.mesh))
 
         staged = stage_on_device(
             make_batches(self.dataset, self.batch_size, self.buckets,
@@ -616,11 +675,11 @@ class Stage2Trainer:
                                    self.buckets, seed=self.seed,
                                    audio_samples=self._max_audio_samples())
             depth = int(self.config.get("data.prefetch", 2))
+            source = (_rows(self._prepare(b), self.mesh) for b in source)
             it = (DevicePrefetcher(
-                source, lambda b: self._transfer.put(self._prepare(b)),
-                depth, ready_fn=self._transfer.ready) if depth > 0
-                else map(lambda b: self._transfer.transfer(self._prepare(b)),
-                         source))
+                source, self._transfer.put, depth,
+                ready_fn=self._transfer.ready) if depth > 0
+                else map(self._transfer.transfer, source))
         last: Dict[str, float] = {}
         t_last = time.perf_counter()
         try:
@@ -666,7 +725,9 @@ class Stage2Trainer:
                 if (self.generate_samples_every
                         and self.step % self.generate_samples_every == 0
                         and not ran_quality_pass):
-                    self.sample_validator.run(self._eval_params(), self.step)
+                    params = self._eval_params()
+                    if self.is_main:
+                        self.sample_validator.run(params, self.step)
                 if self.step % self.save_every == 0:
                     self.save_checkpoint()
         except KeyboardInterrupt:
@@ -681,16 +742,18 @@ class Stage2Trainer:
 
     # -- validation --------------------------------------------------------
     @torch.no_grad()
-    def _val_fwd(self, batch: Dict[str, torch.Tensor]):
-        """Teacher-forced eval-mode forward of the scored weights: (mel
-        loss, MR-STFT loss at its default phase weight, mel, audio)."""
+    def _val_fwd(self, batch: Dict[str, torch.Tensor],
+                 params: Dict[str, torch.Tensor]):
+        """Teacher-forced eval-mode forward of the scored weights
+        ``params``: (mel loss, MR-STFT loss at its default phase weight,
+        mel, audio)."""
         batch = _upcast(batch)
-        self.model.eval()
+        self._eval_model.eval()
         try:
             _, mel_pred, audio_pred = self._acoustic_and_segment(
-                self._eval_params(), batch)
+                params, batch, self._eval_model)
         finally:
-            self.model.train()
+            self._eval_model.train()
         mel_loss = L.masked_mel_l1(mel_pred, batch["mel"],
                                    batch["mel_lengths"])
         spec_loss = L.multi_resolution_stft_loss(audio_pred,
@@ -702,11 +765,21 @@ class Stage2Trainer:
         ``validate_quality`` the evaluator sweep, full-utterance STOI/LSD
         (``utt_`` keys) and the sample validator. Deterministic: segments
         come from a fresh ``default_rng(seed + 7777)``, so validating
-        neither jitters the metric nor advances the training stream.
+        neither jitters the metric nor advances the training stream. On a
+        mesh rank 0 validates the gathered weights and every rank gets its
+        metrics.
 
         ``quality_score`` = segment MCD + spectral convergence;
         ``quality_score_audio`` adds ``gate_stoi_weight · (1 − utt_stoi)``.
         """
+        params = self._eval_params()
+        if self.mesh is None:
+            return self._validate(params, n_batches)
+        return pmesh.broadcast_object(
+            self._validate(params, n_batches) if self.is_main else None)
+
+    def _validate(self, params: Dict[str, torch.Tensor],
+                  n_batches: int) -> Dict[str, float]:
         from m2tts_tpu_torch.evaluation.metrics import (
             compute_mcd, compute_spectral_convergence)
         from m2tts_tpu_torch.evaluation.stoi import compute_stoi
@@ -726,7 +799,7 @@ class Stage2Trainer:
             host, seg_targets = self._prepare(batch, rng=val_rng,
                                               return_targets=True)
             mel_loss, spec_loss, mel_pred, audio_pred = self._val_fwd(
-                self._transfer.transfer(host))
+                self._transfer.transfer(host), params)
             mel_loss, spec_loss = torch.stack([mel_loss, spec_loss]).tolist()
             mel_pred_h = mel_pred.cpu().numpy()
             audio_pred_h = audio_pred.cpu().numpy()
@@ -757,7 +830,7 @@ class Stage2Trainer:
             out["quality_score"] = (out.get("mcd", 0.0)
                                     + out.get("spectral_convergence", 0.0))
         if self.validate_quality:
-            out.update(self._quality_metrics(n_batches))
+            out.update(self._quality_metrics(params, n_batches))
             if (self.gate_stoi_weight > 0 and "utt_stoi" in out
                     and "quality_score" in out):
                 out["quality_score_audio"] = (
@@ -765,22 +838,22 @@ class Stage2Trainer:
                     + self.gate_stoi_weight * (1.0 - out["utt_stoi"]))
         return out
 
-    def _quality_metrics(self, n_batches: int) -> Dict[str, float]:
+    def _quality_metrics(self, params: Dict[str, torch.Tensor],
+                         n_batches: int) -> Dict[str, float]:
         """Evaluator sweep, full-utterance teacher-forced audio metrics
         (STOI, LSD, spectral convergence; ``utt_`` keys) and the eval-text
-        samples with their MOS, all on the scored weights."""
+        samples with their MOS, all on the scored weights ``params``."""
         from m2tts_tpu_torch.evaluation.metrics import (
             benchmark_audio_quality, benchmark_model_performance)
 
         out: Dict[str, float] = {}
         sr = int(self.config.get("data.sample_rate", 22050))
-        params = self._eval_params()
         try:
             batches = make_batches(self.dataset, self.batch_size,
                                    self.buckets, seed=0, shuffle=False,
                                    drop_last=False)
             out.update(benchmark_model_performance(
-                self.model, params, batches,
+                self._eval_model, params, batches,
                 num_samples=self.batch_size * n_batches,
                 sample_rate=sr, _fn_cache=self._bm_cache))
         except Exception:  # a failed sweep must not stop training
@@ -792,7 +865,7 @@ class Stage2Trainer:
                                    drop_last=False,
                                    audio_samples=self._max_audio_samples())
             aq = benchmark_audio_quality(
-                self.model, params, batches,
+                self._eval_model, params, batches,
                 num_samples=self.quality_utterances, sample_rate=sr,
                 hop_length=self.hop, _fn_cache=self._bm_cache)
             out.update({k: v for k, v in {
@@ -836,18 +909,21 @@ class Stage2Trainer:
             return
         self._oom_snapshot = (state, self.step, self.g_updates,
                               self.d_updates)
-        self.ckpt.save(self.step, state, config=self.config)
+        if self.is_main:
+            self.ckpt.save(self.step, state, config=self.config)
 
     def save_best_checkpoint(self, score: float) -> None:
         """Pin the current state under ``<ckpt_dir>/best``: the raw
         generator with its own optimizer state (so a resume never pairs
         EMA weights with raw Adam moments) and the EMA, which the gate
         scored and ``from_checkpoint(dir, step="best")`` serves."""
+        state = self._host_state()
+        if not self.is_main:
+            return
         if self._best_ckpt is None:
             self._best_ckpt = CheckpointManager(
                 self.ckpt.directory / "best", max_to_keep=1)
-        self._best_ckpt.save(self.step, self._host_state(),
-                             config=self.config,
+        self._best_ckpt.save(self.step, state, config=self.config,
                              metrics={"val_score": float(score)})
         _write_best_score(self.ckpt.directory, self.step, score,
                           metric=self._gate_metric_name())

@@ -1,10 +1,12 @@
 """Device selection, inventory and the memory and thermal gauges of the
 port.
 
-``get_device_info``, ``hbm_usage``, ``clear_caches``, ``MemoryTracker`` and
-``ThermalMonitor`` are the counterparts of ``m2tts_tpu/utils/device.py``
-(``:140-208``, ``:210-281``): the same keys, read from ``torch.cuda`` (the
-caching allocator and the driver's free/total count) for the devices and
+``setup_devices``, ``get_device_info``, ``hbm_usage``, ``clear_caches``,
+``MemoryTracker`` and ``ThermalMonitor`` are the counterparts of
+``m2tts_tpu/utils/device.py`` (``:133-208``, ``:210-281``): the same keys,
+read from ``torch.cuda`` (the caching allocator and the driver's free/total
+count) for the devices, from ``torch.distributed`` for the process index
+and count (one process a device, where JAX has one process a host), and
 from psutil for the host. The JAX module's XLA compile-cache helpers
 (``enable_persistent_compile_cache``, ``honor_platform_env`` and the host
 fingerprint that scopes the cache) have no counterpart: PyTorch runs
@@ -19,6 +21,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -35,11 +38,31 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def setup_devices(platform: Optional[str] = None) -> List[torch.device]:
+    """The devices this process runs on: ``platform`` ('cuda' or 'cpu';
+    CUDA when present by default). Under a process group a CUDA process
+    runs on its current device alone; without one, on every CUDA device.
+    'cuda' without CUDA raises."""
+    dev = resolve_device(platform or ("cuda" if torch.cuda.is_available()
+                                      else "cpu"))
+    if dev.type != "cuda":
+        devices = [dev]
+    elif dist.is_initialized():
+        devices = [torch.device("cuda", torch.cuda.current_device())]
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    logger.info("Using %d %s device(s)", len(devices), dev.type)
+    return devices
+
+
 def get_device_info() -> Dict[str, Any]:
     """Host and accelerator inventory: the JAX function's keys (backend,
     device counts and names, process index and count, the psutil host
     fields when psutil is present) and, per CUDA device, its properties
-    (name, total memory, SM count, compute capability)."""
+    (name, total memory, SM count, compute capability). The process index
+    and count are the rank and world size of the process group when one
+    is up."""
     cuda = torch.cuda.is_available()
     count = torch.cuda.device_count() if cuda else 0
     info: Dict[str, Any] = {
@@ -48,8 +71,9 @@ def get_device_info() -> Dict[str, Any]:
         "local_device_count": count if cuda else 1,
         "devices": ([f"cuda:{i}" for i in range(count)] if cuda
                     else ["cpu"]),
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": dist.get_rank() if dist.is_initialized() else 0,
+        "process_count": (dist.get_world_size() if dist.is_initialized()
+                          else 1),
     }
     if cuda:
         props = []

@@ -15,7 +15,10 @@ and the deployment surface on the card (a ``torch.export`` artifact
 exported there against the live ``torch``-backend Synthesizer, ±1 LSB, and
 loaded on the CPU against a CPU Synthesizer of the same weights, ±1 LSB;
 the synthesize CLI's WAV against ``Synthesizer`` through the kernel,
-0 LSB). They skip without a card. This file imports no JAX, so on the card it runs without the test
+0 LSB), and a mesh on the card (an NCCL world of one rank: three stage-1
+steps on its (1, 1) mesh against the same steps without a mesh, and a
+batch through the kernel on the mesh against ``mesh=None``, 0 LSB). They
+skip without a card. This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -32,6 +35,7 @@ rtol 1e-5 and its params within lr/10.
 
 import itertools
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -561,3 +565,54 @@ def test_synthesize_cli_on_cuda_matches_synthesizer(tmp_path):
     save_wav(ref["audio"], tmp_path / "ref.wav")
     np.testing.assert_array_equal(read(tmp_path / "cli.wav"),
                                   read(tmp_path / "ref.wav"))
+
+
+def _nccl_world(out):
+    """One NCCL rank: three stage-1 steps on the (1, 1) mesh that
+    ``system.mesh`` gives under a process group, and a sharded batch
+    through the kernel."""
+    from m2tts_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = Stage1Trainer(_train_config(Path(out)),
+                      dataset=DummyDataset(**DS_KW), device="cuda")
+    assert t.mesh is not None and t.mesh.mesh.shape == (1, 1)
+    losses = [{k: v.item() for k, v in t._train_step(t._put(b)).items()}
+              for b in list(make_batches(t.dataset, 8, t.buckets, seed=5))[:3]]
+    params = t._host_state_copy()["params"]
+    synth = Synthesizer(_tiny_model(), mesh=make_mesh(device_type="cuda"),
+                        **MESH_BUCKETS)
+    before = _counts()["bf16"]
+    out = synth.synthesize_batch(MESH_TEXTS, duration_scale=12.0)
+    return losses, params, [(r["frames"], r["audio_pcm"]) for r in out], \
+        _counts()["bf16"] - before
+
+
+MESH_BUCKETS = dict(text_buckets=(32,), frame_buckets=(128,),
+                    batch_buckets=(4,))
+MESH_TEXTS = ["hello world", "the quick brown fox jumps", "a"]
+
+
+@needs_cuda
+def test_nccl_mesh_of_one_equals_no_mesh(tmp_path, no_tf32):
+    from m2tts_tpu_torch.parallel.mesh import spawn_world
+
+    t = Stage1Trainer(_train_config(tmp_path / "plain"),
+                      dataset=DummyDataset(**DS_KW), device="cuda")
+    want = [{k: v.item() for k, v in t._train_step(t._put(b)).items()}
+            for b in list(make_batches(t.dataset, 8, t.buckets, seed=5))[:3]]
+    losses, params, out, launches = spawn_world(
+        _nccl_world, 1, args=(str(tmp_path / "mesh"),), backend="nccl",
+        device="cuda", workdir=str(tmp_path))[0]
+    for got, ref in zip(losses, want):
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
+    for k, v in t._host_state_copy()["params"].items():
+        torch.testing.assert_close(params[k], v, atol=1e-6, rtol=0, msg=k)
+    assert launches > 0
+    ref = Synthesizer(_tiny_model(), **MESH_BUCKETS).synthesize_batch(
+        MESH_TEXTS, duration_scale=12.0)
+    for (frames, pcm), r in zip(out, ref):
+        assert frames == r["frames"] > 0
+        np.testing.assert_array_equal(pcm, r["audio_pcm"])

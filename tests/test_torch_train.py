@@ -515,7 +515,8 @@ def test_build_dataset_datafree_covers_all_buckets(tmp_path):
 def test_mesh_beyond_one_device_raises(tmp_path, mesh):
     cfg = tiny_config(tmp_path)
     cfg["system"]["mesh"] = mesh
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # without a process group a mesh above one device names the launcher
+    with pytest.raises(RuntimeError, match="torchrun"):
         port(cfg)
 
 
