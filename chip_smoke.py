@@ -67,6 +67,27 @@ the warmup are overridden, ``STAGE2_OVERRIDES``):
   eight texts: PCM equal at 0 LSB to the in-memory EMA weights, within the
   bf16 bar of the ``mm`` vocoder on the same weights.
 
+Then the phase-packed discriminator (``models/discriminator.py``'s
+``packed_multiscale_apply``, ``ops/grouped_conv.py``) and the smoke suite:
+
+- ``disc_lowering``: the flagship discriminator (16.76 M parameters) on
+  [64, 8192], the stage-2 D batch; packed against the module in f32 with
+  TF32 off (outputs 1e-4, gradients 1e-5, each weight-gradient lowering
+  5e-4) and in bf16 (0.05); ms forward and forward+backward in bf16 for
+  native and packed with each weight-gradient lowering beside the FLOP and
+  byte bounds (``disc_work``), the same with cuDNN's autotuner, and the
+  device operations of one forward+backward by kind;
+- ``train_stage2_packed``: a few flagship GAN steps on ``FLAGSHIP_TRAINING``
+  (batch 32, bf16, 8192-sample segments, no spectral norm) with
+  ``disc_lowering: packed`` and with ``native``, warm-started from the
+  ``train`` phase's checkpoint (the packed run must call
+  ``packed_multiscale_apply`` three times a step); ms per fused step by
+  bucket, a 3-step profile at (128, 512) for each; one f32 step held
+  packed against native (``PACKED_VS_NATIVE``); the packed run's
+  checkpoint served through ``vocoder_tc.cu`` at 0 LSB;
+- ``pipeline_smoke``: ``m2tts_tpu_torch.smoke.main([])`` on the card,
+  7/7 parts, its vocoder launches counted.
+
 Then the mesh paths (``multi_device``), each world of processes spawned
 with ``spawn`` (they import the port and load the kernels built above):
 
@@ -86,7 +107,8 @@ with ``spawn`` (they import the port and load the kernels built above):
 One JSON line per phase; the line before the last lists the kernels (with
 the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
-code is nonzero. Needs one CUDA device, ``nvcc`` and no network or PyYAML.
+code is nonzero. Needs one CUDA device, ``nvcc``, PyYAML (the smoke
+suite's config part) and no network.
 
     python3 chip_smoke.py --profile
 
@@ -308,10 +330,19 @@ def device_ms(fn, iters: int) -> dict:
             "kernel_names": sorted({e.key[:60] for e in ev})}
 
 
+# the layout transposes; cuDNN's convolution kernels (its implicit-GEMM,
+# direct and split-K reduction kernels included); the other GEMMs (cuBLAS)
+_TRANSPOSE_RE = re.compile(r"nchwToNhwc|nhwcToNchw|transpose", re.I)
+_CONV_RE = re.compile(r"conv|fprop|dgrad|wgrad|cudnn", re.I)
+_GEMM_RE = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|sm90_", re.I)
+
+
 def profile_batch(run, card: str, top: int = 12,
                   phase: str = "main_path_profile") -> dict:
-    """Device time of one ``run()`` by kernel name (torch.profiler), and the
-    device's busy share of the host wall time around it."""
+    """Device time of one ``run()`` by kernel name (torch.profiler), the
+    device's busy share of the host wall time around it, and its device
+    operations (of them the layout transposes, cuDNN's convolution kernels
+    and the other GEMM kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,9 +366,18 @@ def profile_batch(run, card: str, top: int = 12,
     busy_us = sum(k[1] for k in kernels)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    kinds = {"transpose_ops": 0, "conv_ops": 0, "gemm_ops": 0}
+    for n, _, c in kernels:
+        for kind, pattern in (("transpose_ops", _TRANSPOSE_RE),
+                              ("conv_ops", _CONV_RE),
+                              ("gemm_ops", _GEMM_RE)):
+            if pattern.search(n):
+                kinds[kind] += c
+                break
     return {"phase": phase, "card": card, "wall_us": wall_us,
             "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
             "device_ops": sum(k[2] for k in kernels),
+            **kinds,
             "top": [{"name": n[:80], "us": t, "calls": c}
                     for n, t, c in kernels[:top]],
             "host_top": [{"name": n[:80], "self_us": t, "calls": c}
@@ -1441,6 +1481,471 @@ def train_stage2_to_serve_phase(stage2: dict, buckets: dict, card: str,
     return out
 
 
+# the flagship stage-2 discriminator batch [real; fake]: FLAGSHIP_TRAINING's
+# batch 32 × 8192-sample segments
+DISC_SHAPE = (64, 8192)
+# packed against native on the card (TF32 off): the bars of
+# tests/test_disc_packed.py (outputs 1e-4 abs, bf16 outputs 0.05 abs and
+# rel) and of tests/test_grouped_conv_wgrad.py (each weight-gradient
+# lowering 5e-4 abs and rel). Its f32 gradient bar, 1e-5 abs, is below the
+# f32 gradient's own error at this size: at [64, 8192] cuDNN's native f32
+# gradient lies up to 8.3e-5 from the same gradient in f64 (sums over
+# B·T = 131k terms a weight; the CPU tests' [2, 1024] sums 64× fewer), and
+# packed's as far, while the two differ by up to 4.6e-5. So each f32
+# gradient tensor of the packed lowering is held to the f64 native one:
+# within grad_vs_f64 times native's own distance from it, + f32_grad
+DISC_TOL = {"f32_out": 1e-4, "f32_grad": 1e-5, "grad_vs_f64": 2.0,
+            "bf16": 0.05, "wgrad": 5e-4}
+# a few flagship GAN steps a lowering (FLAGSHIP_TRAINING, no spectral norm),
+# warm-started from the stage-1 checkpoint; the rest of the recipe stands
+PACKED_OVERRIDES = {"training.max_steps": 6, "training.log_every": 3,
+                    "training.validate_every": 1000,
+                    "training.save_every": 6}
+# one f32 GAN step (TF32 off) with the packed lowering against the same step
+# with the native one, from the same weights and batch. The losses and the
+# discriminator's gradient (taken before any update) differ only by the two
+# lowerings' rounding: relative 1e-5, stage 1's bars. The generator's
+# gradient is taken against the updated discriminator: Adam's first update
+# moves each weight by about lr·sign(g), so where |g| is near rounding the
+# two lowerings can step a weight opposite ways, and the generator's f32
+# gradient is ill-conditioned at these weights besides (STAGE2_VS_CPU; the
+# card's atomics reorder its sums from run to run). So, as in
+# STAGE2_VS_CPU, both f32 runs are held to the same step in f64 (native):
+# the packed one within g_vs_f64 times the native one's relative L2
+# distance from it (+ g_floor)
+PACKED_VS_NATIVE = {"loss_rel": 1e-5, "d_grad_rel_l2": 1e-5,
+                    "g_vs_f64": 2.0, "g_floor": 1e-7}
+
+
+def disc_work(B: int, T: int, scales=(1, 2, 4)) -> dict:
+    """FLOPs and bytes of the discriminator on [B, T] from its layer table:
+    forward FLOPs (2 a multiply-add, the strided convs at their own taps),
+    forward+backward 3× that (the input and the weight gradients); bf16
+    bytes of the forward (audio and weights read once, logits and the 18
+    feature maps written once) and of the forward+backward (those, and the
+    weight and input gradients written once)."""
+    from m2tts_tpu_torch.models.discriminator import _LAYERS
+
+    flops, feat, n_w = 0, 0, 0
+    for s in scales:
+        t, cin = T // s, 1
+        for ch, k, stride, g in _LAYERS + ((1, 3, 1, 1),):
+            t //= stride
+            flops += 2 * B * t * ch * (cin // g) * k
+            feat += B * t * ch
+            n_w += ch * (cin // g) * k + ch
+            cin = ch
+    fwd_bytes = 2 * (B * T + n_w + feat)
+    return {"fwd_flops": flops, "fwd_bwd_flops": 3 * flops,
+            "fwd_bytes": fwd_bytes,
+            "fwd_bwd_bytes": fwd_bytes + 2 * (n_w + B * T),
+            "weights": n_w}
+
+
+def _disc_loss(logits, feats):
+    """A scalar of every logit and feature map, in f32 (the trainer upcasts
+    before its losses): what tests/test_disc_packed.py differentiates."""
+    return (sum(l.float().pow(2).mean() for l in logits)
+            + sum(f.float().abs().mean() for fs in feats for f in fs))
+
+
+def disc_lowering_phase(card: str) -> dict:
+    """The flagship discriminator (three scales, 16.76 M parameters) on
+    [64, 8192], the stage-2 D batch: the packed lowering against the module
+    in f32 (outputs, weight and input gradients, each weight-gradient
+    lowering) and in bf16 (outputs); ms forward and forward+backward in
+    bf16 by CUDA events for native and packed with each weight-gradient
+    lowering, beside the FLOP and byte bounds; device operations of one
+    forward+backward by kind."""
+    from m2tts_tpu_torch.models import discriminator as tdisc
+    from m2tts_tpu_torch.models.tts_model import init_params
+    from m2tts_tpu_torch.ops.grouped_conv import VARIANTS
+
+    t0 = time.perf_counter()
+    disc = init_params(tdisc.MultiScaleDiscriminator(),
+                       torch.Generator().manual_seed(SEED), "cuda")
+    params = {k: v.detach() for k, v in disc.named_parameters()}
+    B, T = DISC_SHAPE
+    audio = torch.randn(DISC_SHAPE, generator=torch.Generator().manual_seed(
+        SEED + 2)).cuda()
+
+    def apply(p, x, lowering):
+        if lowering == "native":
+            return torch.func.functional_call(disc, p, (x,))
+        return tdisc.packed_multiscale_apply(p, x, wgrad=lowering)
+
+    def leaves(p, x):  # differentiable copies: weights, then the input
+        return ({k: v.clone().requires_grad_() for k, v in p.items()},
+                x.clone().requires_grad_())
+
+    def fwd_bwd(leaf, lowering):
+        p, x = leaf
+        return torch.autograd.grad(_disc_loss(*apply(p, x, lowering)),
+                                   [x] + list(p.values()))
+
+    def outputs(p, x, lowering):
+        with torch.no_grad():
+            logits, feats = apply(p, x, lowering)
+        return list(logits) + [f for fs in feats for f in fs]
+
+    # f32 (TF32 off): outputs and gradients
+    holds = {}
+    native_out = outputs(params, audio, "native")
+    packed_out = outputs(params, audio, "xla")
+    holds["f32_out_max_abs"] = max((a - b).abs().max().item()
+                                   for a, b in zip(packed_out, native_out))
+    del packed_out
+    f32_leaves = leaves(params, audio)
+    g_native = fwd_bwd(f32_leaves, "native")
+    disc.double()  # the reference gradient: native, in f64
+    g_f64 = fwd_bwd(leaves({k: v.detach() for k, v in
+                            disc.named_parameters()}, audio.double()),
+                    "native")
+    disc.float()
+
+    def dist(g):  # max abs distance from f64, per gradient tensor
+        return [(a.double() - r).abs().max().item() for a, r in zip(g, g_f64)]
+
+    native_f64 = dist(g_native)
+    holds["f32_native_grad_vs_f64_max_abs"] = max(native_f64)
+    holds["f32_grad_max_abs"] = {}
+    for wg in VARIANTS:
+        g = fwd_bwd(f32_leaves, wg)
+        err = [(a - b).abs().max().item() for a, b in zip(g, g_native)]
+        packed_f64 = dist(g)
+        holds["f32_grad_max_abs"][wg] = {
+            "vs_native_input": err[0], "vs_native_weights": max(err[1:]),
+            "vs_f64": max(packed_f64)}
+        for a, b in zip(g, g_native):
+            torch.testing.assert_close(a, b, rtol=DISC_TOL["wgrad"],
+                                       atol=DISC_TOL["wgrad"])
+        if wg == "xla":
+            bad = [(i, p, n) for i, (p, n) in enumerate(zip(packed_f64,
+                                                             native_f64))
+                   if p > DISC_TOL["grad_vs_f64"] * n + DISC_TOL["f32_grad"]]
+            if bad:
+                raise RuntimeError(f"packed f32 gradients (tensor, packed and"
+                                   f" native distance from f64): {bad}")
+        del g
+    del g_native, g_f64, f32_leaves
+    if holds["f32_out_max_abs"] > DISC_TOL["f32_out"]:
+        raise RuntimeError(f"packed f32 outputs differ from native by "
+                           f"{holds['f32_out_max_abs']}")
+    # bf16: outputs
+    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    a16 = audio.to(torch.bfloat16)
+    n16 = outputs(p16, a16, "native")
+    k16 = outputs(p16, a16, "xla")
+    for a, b in zip(k16, n16):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   rtol=DISC_TOL["bf16"],
+                                   atol=DISC_TOL["bf16"])
+    holds["bf16_out_max_abs"] = max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(k16, n16))
+    del n16, k16, native_out
+
+    # bf16 times, native first and last
+    work = disc_work(B, T)
+    bf16_leaves = leaves(p16, a16)
+    times, census = {}, {}
+    for lowering in ("native", "xla", "pergroup", "dense", "native"):
+        t = times.setdefault(lowering, {"fwd_ms": [], "fwd_bwd_ms": []})
+        if lowering in ("native", "xla"):
+            t["fwd_ms"].append(cuda_time_ms(
+                lambda: outputs(p16, a16, lowering), 10))
+        t["fwd_bwd_ms"].append(cuda_time_ms(
+            lambda: fwd_bwd(bf16_leaves, lowering), 10))
+        if lowering not in census:
+            census[lowering] = profile_batch(
+                lambda: fwd_bwd(bf16_leaves, lowering), card, top=5,
+                phase=f"disc_fwd_bwd_{lowering}")
+    # the same with cuDNN's autotuner, which the trainer leaves off
+    with_benchmark = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for lowering in ("native", "xla"):
+            with_benchmark[lowering] = cuda_time_ms(
+                lambda: fwd_bwd(bf16_leaves, lowering), 10, warmup=3)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    bounds = {}
+    for what in ("fwd", "fwd_bwd"):
+        ops_ms = work[f"{what}_flops"] / PEAK_FLOPS["bf16"] * 1e3
+        bytes_ms = work[f"{what}_bytes"] / HBM_BYTES_PER_S * 1e3
+        bounds[what] = {"flop_bound_ms": ops_ms, "byte_bound_ms": bytes_ms,
+                        "bound_ms": max(ops_ms, bytes_ms),
+                        "bound_by": "operations" if ops_ms >= bytes_ms
+                        else "bytes"}
+    out = {"phase": "disc_lowering", "card": card, "shape": list(DISC_SHAPE),
+           "discriminator_params": work["weights"], "tol": DISC_TOL,
+           "tf32": False, "cudnn_benchmark": False, **holds,
+           "work": work, "bounds": bounds, "bf16_times": times,
+           "bf16_fwd_bwd_ms_cudnn_benchmark": with_benchmark,
+           "bf16_fwd_bwd_device_ops": census,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    del disc, params, p16, audio, a16, bf16_leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def packed_vs_native_step(out_dir: str) -> dict:
+    """One f32 fused GAN step (TF32 off) of the flagship on the
+    FLAGSHIP_TRAINING recipe at the (128, 512) bucket, batch 8, 8192-sample
+    segments, dropout 0, constant lr, with the packed lowering and with the
+    native one from the same weights and batch, and the native step in f64
+    as the generator's reference (``PACKED_VS_NATIVE``)."""
+    from m2tts_tpu_torch.data.dataset import make_batches
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, FLAGSHIP_TRAINING
+
+    extra = {"model.text_encoder.dropout": 0.0, "training.bf16": False,
+             "training.batch_size": 8, "training.lr_scheduler": "constant",
+             "training.warmup_steps": 0}
+    tr = {}
+    for run, low in (("native", "native"), ("packed", "packed"),
+                     ("f64", "native")):
+        tr[run] = Stage2Trainer(train_config(
+            FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{out_dir}/step_{run}",
+            overrides=PACKED_OVERRIDES,
+            **{**extra, "training.disc_lowering": low}), device="cuda")
+        if tr[run].disc_lowering != low:
+            raise RuntimeError(f"{run}: disc_lowering {tr[run].disc_lowering}")
+    for run in ("packed", "f64"):
+        t = tr[run]
+        t.model.load_state_dict(tr["native"].model.state_dict())
+        t.discriminator.load_state_dict(
+            tr["native"].discriminator.state_dict())
+        if run == "f64":
+            t.model.double()
+            t.discriminator.double()
+    grads = {}
+    for run, t in tr.items():  # record each update's gradients
+        for net in ("d", "g"):
+            def update(g, *args, _fn=getattr(t, f"_{net}_update"),
+                       _key=(run, net)):
+                grads[_key] = [x.detach().double() for x in g]
+                return _fn(g, *args)
+
+            setattr(t, f"_{net}_update", update)
+    native = tr["native"]
+    frames = native.buckets[1][1]  # the (128, 512) bucket
+    host = next(b for b in make_batches(
+        native.dataset, 8, native.buckets, seed=0,
+        audio_samples=native._max_audio_samples())
+        if b["mel"].shape[1] == frames)
+    host = native._prepare(host, np.random.default_rng(SEED))
+    batches = {"native": host, "packed": host, "f64": {
+        k: v.astype(np.float64) if getattr(v, "dtype", None) == np.float32
+        else v for k, v in host.items()}}
+    losses = {run: {k: v.item() for k, v in tr[run].train_step(
+        dict(batches[run])).items()} for run in tr}
+
+    def dist(a, b):  # relative L2 distance of gradient list a from b
+        num = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b)))
+        return num / math.sqrt(sum(float((y ** 2).sum()) for y in b))
+
+    bars = PACKED_VS_NATIVE
+    out = {"losses": losses,
+           "loss_rel": {k: abs(losses["packed"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in losses["native"].items()},
+           "d_grad_rel_l2": dist(grads[("packed", "d")],
+                                 grads[("native", "d")]),
+           "g_grad_rel_l2": dist(grads[("packed", "g")],
+                                 grads[("native", "g")]),
+           "g_grad_rel_l2_f64": {run: dist(grads[(run, "g")],
+                                           grads[("f64", "g")])
+                                 for run in ("native", "packed")}}
+    radius = (bars["g_vs_f64"] * out["g_grad_rel_l2_f64"]["native"]
+              + bars["g_floor"])
+    out["g_bar"] = radius
+    if (max(out["loss_rel"].values()) > bars["loss_rel"]
+            or out["d_grad_rel_l2"] > bars["d_grad_rel_l2"]
+            or out["g_grad_rel_l2_f64"]["packed"] > radius):
+        raise RuntimeError(f"packed GAN step vs native: {out}")
+    for t in tr.values():
+        t.close()
+    return out
+
+
+class PackedRouteCounts:
+    """While entered, counts the trainer's calls of
+    ``packed_multiscale_apply`` (``applies``) and, inside the packed
+    lowering, its strided convs by route: ``packed``, or ``plain_strided``
+    (a length the stride does not divide, as in JAX). The functions are
+    wrapped here and restored on exit; the model keeps no counter."""
+
+    def __init__(self):
+        from m2tts_tpu_torch.models import discriminator as tdisc
+        from m2tts_tpu_torch.training import trainer_stage2 as tstage2
+
+        self.counts = {"applies": 0, "packed": 0, "plain_strided": 0}
+        self._slots = ((tstage2, "packed_multiscale_apply", "applies"),
+                       (tdisc, "_packed_strided_conv", "packed"),
+                       (tdisc, "_plain_conv", "plain_strided"))
+        self._saved = []
+
+    def __enter__(self) -> dict:
+        for mod, name, key in self._slots:
+            fn = getattr(mod, name)
+
+            def counted(*args, _fn=fn, _key=key, **kw):
+                # _plain_conv(x, w, b, stride, groups): strided calls only
+                if _key != "plain_strided" or args[3] > 1:
+                    self.counts[_key] += 1
+                return _fn(*args, **kw)
+
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+
+def train_stage2_packed_phase(out_dir: str, card: str, stage1_dir,
+                              buckets: dict, counters: Counters) -> dict:
+    """Flagship GAN steps on FLAGSHIP_TRAINING (batch 32, bf16, 8192-sample
+    segments, no spectral norm) with ``disc_lowering: packed`` and the same
+    steps with ``native``, each warm-started from the stage-1 checkpoint;
+    the packed run must go through ``packed_multiscale_apply``
+    (``PackedRouteCounts``) with no strided conv left plain. Then ms per fused step by
+    bucket in turns, a 3-step profile at (128, 512) for each (device
+    operations by kind, busy share), one f32 step held packed against
+    native (``packed_vs_native_step``), and the packed run's checkpoint
+    served through ``from_checkpoint`` (``auto``: ``vocoder_tc.cu``) at
+    0 LSB against its in-memory weights."""
+    from m2tts_tpu_torch.models.tts_model import build_model
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, FLAGSHIP_TRAINING
+
+    t0 = time.perf_counter()
+    steps = PACKED_OVERRIDES["training.max_steps"]
+    runs, trainers = {}, {}
+    for low in ("native", "packed"):
+        cfg = train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                           f"{out_dir}/{low}", overrides=PACKED_OVERRIDES,
+                           **{"training.disc_lowering": low,
+                              "training.init_generator_from": str(stage1_dir)})
+        t = Stage2Trainer(cfg, device="cuda")
+        if t.disc_lowering != low or t.discriminator.spectral_norm:
+            raise RuntimeError(f"{low}: lowering {t.disc_lowering}, spectral "
+                               f"norm {t.discriminator.spectral_norm}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with PackedRouteCounts() as counts:
+            t1 = time.perf_counter()
+            t.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        if low == "packed":  # the weights its last checkpoint holds
+            served_weights = _eval_weights(t)
+        # three applies a fused step: D on [real; fake], G's fake, G's real
+        want = {"applies": 3 * steps, "plain_strided": 0} if low == "packed" \
+            else {"applies": 0}
+        if any(counts[k] != v for k, v in want.items()) \
+                or (low == "packed" and counts["packed"] < 1):
+            raise RuntimeError(f"{low} run: packed apply counts {counts}")
+        rows = _read_metrics(cfg.get("paths.log_dir"))
+        logged = {int(r["step"]): {k: float(v) for k, v in r.items()
+                                   if v and _is_loss(k)}
+                  for r in rows if r.get("total_loss")}
+        values = [v for ls in logged.values() for v in ls.values()]
+        if len(logged) != steps // PACKED_OVERRIDES["training.log_every"] \
+                or not values or not all(map(math.isfinite, values)):
+            raise RuntimeError(f"{low} run: losses {logged}")
+        runs[low] = {"wall_s": wall, "steps_per_s": steps / wall,
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "packed_apply_counts": counts, "losses_logged": logged}
+        trainers[low] = t
+    rng = np.random.default_rng(SEED)
+    ref = trainers["native"]
+    batches = bucket_batches(
+        ref, lambda b: ref._transfer.transfer(ref._prepare(b, rng)),
+        ref._max_audio_samples())
+    for low in ("native", "packed", "packed", "native"):
+        for (tb, fb), b in batches.items():
+            runs[low].setdefault("ms_per_step_by_bucket", {}).setdefault(
+                f"{tb},{fb}", []).append(step_ms(trainers[low].train_step, b,
+                                                 iters=5))
+    b512 = batches[tuple(ref.buckets[1])]
+    for low in ("native", "packed"):
+        runs[low]["profile_3_steps_128_512"] = profile_batch(
+            lambda: [trainers[low].train_step(b512) for _ in range(3)],
+            card, phase=f"train_stage2_packed_profile_{low}")
+    del batches, b512
+    out = {"phase": "train_stage2_packed", "card": card,
+           "overrides": PACKED_OVERRIDES,
+           "batch_size": ref.batch_size, "bf16": ref.bf16,
+           "segment_samples": ref.seg_frames * ref.upsample,
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "warm_start": str(stage1_dir), **runs}
+    out["one_step_f32"] = packed_vs_native_step(out_dir)
+
+    # the packed run's checkpoint, served through the kernel
+    packed = trainers["packed"]
+    served = pipeline.from_checkpoint(packed.ckpt.directory, device="cuda",
+                                      vocoder_backend="auto", **buckets)
+    model = build_model(FLAGSHIP_MODEL)
+    model.load_state_dict(served_weights)
+    in_memory = pipeline.Synthesizer(model, vocoder_backend="auto",
+                                     device="cuda", **buckets)
+    ids, lengths = packed_eval_texts(served)
+    scale = calibrate_scale(served, ids, lengths)
+    counters.zero()
+    got = served.synthesize_batch(EVAL_TEXTS, duration_scale=scale)
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"train_stage2_packed skipped the kernel: "
+                           f"{launches}")
+    want = in_memory.synthesize_batch(EVAL_TEXTS, duration_scale=scale)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not a["frames"] == b["frames"] > 0 or a.get("truncated"):
+            raise RuntimeError(f"text {i}: frames {a['frames']} vs "
+                               f"{b['frames']}")
+        pcm_diff(a["audio_pcm"], b["audio_pcm"], (0, None),
+                 f"packed stage-2 checkpoint vs in-memory, text {i}")
+    out.update(launches=launches, served_frames=[r["frames"] for r in got],
+               served_max_pcm_lsb_vs_in_memory=0,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    for t in trainers.values():
+        t.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_smoke_phase(card: str, counters: Counters) -> dict:
+    """``python -m m2tts_tpu_torch.smoke`` in this process, on the card:
+    all seven parts, exit 0; the vocoder launches of its inference part."""
+    import contextlib
+    import io
+
+    from m2tts_tpu_torch import smoke
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    counters.zero()
+    with contextlib.redirect_stdout(buf):
+        rc = smoke.main([])
+    launches = counters.read()
+    text = buf.getvalue()
+    if rc != 0 or "7/7 parts passed" not in text \
+            or launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"smoke suite: rc {rc}, launches {launches}\n"
+                           f"{text}")
+    out = {"phase": "pipeline_smoke", "card": card, "rc": rc,
+           "summary": text.strip().splitlines()[-1], "launches": launches,
+           "lines": [l for l in text.splitlines() if l.startswith("    ")],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def run_cli(main_fn, argv) -> str:
     """``main_fn(argv)`` in this process (it must return 0); its stdout."""
     import contextlib
@@ -2442,6 +2947,15 @@ def main() -> int:
             run["trainer"].close()
         del stage2
         torch.cuda.empty_cache()
+
+        # ---- 7b. the phase-packed discriminator: the lowering alone, in
+        # the stage-2 trainer, then the pipeline smoke suite
+        disc_lowering_phase(card)
+        paths["train_stage2_packed"] = train_stage2_packed_phase(
+            f"{tdir}/stage2_packed", card, stage1_dir, buckets,
+            counters)["launches"]
+        paths["pipeline_smoke"] = pipeline_smoke_phase(card,
+                                                       counters)["launches"]
 
         # ---- 8. the deployment surface: the synthesize CLI on the stage-2
         # checkpoint, export artifacts, the native mel frontend, the

@@ -19,7 +19,8 @@ from __future__ import annotations
 import re
 import string
 import unicodedata
-from typing import Dict, List, Optional
+from pathlib import Path
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
@@ -250,3 +251,12 @@ class TextProcessor:
             "phoneme_ids": np.stack([o["phoneme_ids"] for o in outs]),
             "lengths": np.asarray([o["length"] for o in outs], dtype=np.int32),
         }
+
+
+def write_phoneme_dict(path: Union[str, Path]) -> None:
+    """Dump the phoneme↔id table as TSV, one ``phoneme<TAB>id`` line per
+    phoneme in id order (reference src/utils/text.py:350)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        for i, p in enumerate(PHONEMES):
+            f.write(f"{p}\t{i}\n")

@@ -45,9 +45,12 @@ arithmetic:
 
 A checkpoint holds ``{"generator", "g_opt_state", "discriminator",
 "d_opt_state", "step"}`` and ``generator_ema``; ``load_for_inference`` and
-``serving.pipeline.from_checkpoint`` serve its EMA. The discriminator runs
-as plain convs whatever ``disc_lowering`` says (``packed`` is the same
-function re-lowered for the TPU).
+``serving.pipeline.from_checkpoint`` serve its EMA. ``disc_lowering``
+picks the discriminator's lowering: ``native`` runs the module's convs,
+``packed`` the same function through ``packed_multiscale_apply`` (the
+strided grouped convs phase-packed into stride-1 convs) on the same
+parameters; ``auto`` is ``native`` (JAX picks ``packed`` on a TPU only), and
+spectral norm forces ``native``.
 
 On a ('data', 'model') mesh (``mesh=``, or ``system.mesh`` under
 ``torchrun``) the generator is placed by the TP rules and the
@@ -76,7 +79,8 @@ import torch.distributed as dist
 from m2tts_tpu_torch.data.dataset import data_iterator, make_batches
 from m2tts_tpu_torch.data.prefetch import BatchTransfer, DevicePrefetcher
 from m2tts_tpu_torch.models.components import Dropout
-from m2tts_tpu_torch.models.discriminator import MultiScaleDiscriminator
+from m2tts_tpu_torch.models.discriminator import (MultiScaleDiscriminator,
+                                                  packed_multiscale_apply)
 from m2tts_tpu_torch.models.tts_model import build_model, init_params
 from m2tts_tpu_torch.parallel import mesh as pmesh
 from m2tts_tpu_torch.parallel import partition
@@ -209,7 +213,8 @@ class Stage2Trainer:
         disc_lowering = str(tcfg.get("disc_lowering", "auto"))
         if disc_lowering not in ("auto", "native", "packed"):
             raise ValueError(f"Unknown disc_lowering {disc_lowering!r}")
-        # recorded as resolved; every value runs the same plain convs
+        # 'auto' resolves as JAX's off a TPU; the packed apply reads the
+        # raw weights, so spectral norm keeps the module
         self.disc_lowering = ("native" if disc_lowering == "auto"
                               or self.discriminator.spectral_norm
                               else disc_lowering)
@@ -420,8 +425,12 @@ class Stage2Trainer:
         feature maps, which the discriminator's loss does not read)."""
         if self.bf16:
             audio = audio.to(torch.bfloat16)
-        logits, feats = torch.func.functional_call(
-            self.discriminator, self._cast(d_params), (audio,))
+        if self.disc_lowering == "packed":
+            logits, feats = packed_multiscale_apply(
+                self._cast(d_params), audio, scales=self.discriminator.scales)
+        else:
+            logits, feats = torch.func.functional_call(
+                self.discriminator, self._cast(d_params), (audio,))
         logits = [_f32(l) for l in logits]
         if not features:
             return logits

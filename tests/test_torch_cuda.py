@@ -10,7 +10,9 @@ same step on the CPU with TF32 off, the prefetcher's side-stream copies
 bit-equal to their host batches, the device cache), a reference ``.pt``
 served through ``auto``, and stage 2 on the card (the multi-scale
 discriminator's forward and input/weight gradients against the CPU in
-f32 and in f64, and one fused GAN step against the CPU in f32, TF32 off),
+f32 and in f64, its phase-packed lowering with each weight-gradient
+lowering against f64, and one fused GAN step against the CPU in f32, TF32
+off),
 and the deployment surface on the card (a ``torch.export`` artifact
 exported there against the live ``torch``-backend Synthesizer, ±1 LSB, and
 loaded on the CPU against a CPU Synthesizer of the same weights, ±1 LSB;
@@ -428,6 +430,40 @@ def test_discriminator_on_cuda_matches_cpu(no_tf32):
         assert got.is_cuda and got.dtype == torch.float32
         assert _rel_max(got.double(), b) < DISC_F64_REL
         assert _rel_max(got, a) < DISC_F64_REL
+
+
+@needs_cuda
+@pytest.mark.parametrize("wgrad", ["xla", "pergroup", "dense"])
+def test_packed_discriminator_on_cuda_matches_f64(no_tf32, wgrad):
+    """The phase-packed lowering (``packed_multiscale_apply``, each
+    weight-gradient lowering) on the card: logits, feature maps, input and
+    weight gradients against the module in f64 on the CPU, at
+    ``DISC_F64_REL``."""
+    from m2tts_tpu_torch.models.discriminator import packed_multiscale_apply
+
+    d = init_params(MultiScaleDiscriminator(), torch.Generator().manual_seed(0),
+                    "cpu")
+    x = torch.randn((2, 4096), generator=torch.Generator().manual_seed(1))
+
+    def run(apply, params, xi):
+        xi = xi.requires_grad_(True)
+        logits, feats = apply(params, xi)
+        scalar = (sum((l ** 2).sum() for l in logits)
+                  + sum(f.abs().mean() for fs in feats for f in fs))
+        grads = torch.autograd.grad(scalar, [xi, *params.values()])
+        return [*logits, *(f for fs in feats for f in fs), *grads]
+
+    card = run(lambda p, xi: packed_multiscale_apply(p, xi, wgrad=wgrad),
+               {k: v.detach().cuda().requires_grad_()
+                for k, v in d.named_parameters()}, x.cuda())
+    d64 = d.double()
+    f64 = run(lambda p, xi: torch.func.functional_call(d64, p, (xi,)),
+              {k: v.detach().requires_grad_()
+               for k, v in d64.named_parameters()}, x.double())
+    assert len(card) == len(f64) == 3 + 18 + 1 + 3 * 14
+    for got, want in zip(card, f64):
+        assert got.is_cuda and got.dtype == torch.float32
+        assert _rel_max(got.double(), want) < DISC_F64_REL
 
 
 def _stage2_config(tmp_path):

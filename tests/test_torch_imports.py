@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: importing every module of
 ``m2tts_tpu_torch`` and everything ``chip_smoke.py`` imports loads no JAX,
 no flax, no module of the JAX package and not ``tools/orbax_to_torch.py``
-(the converter imports both packages); the entry points, the CLIs among
-them, default to CUDA and raise without it; ``chip_smoke.py`` fails
-without a CUDA device and without the rest of the repo."""
+(the converter imports both packages); the entry points, the CLIs and the
+smoke suite among them, default to CUDA and raise without it;
+``chip_smoke.py`` fails without a CUDA device and without the rest of the
+repo."""
 
 import ast
 import json
@@ -16,6 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from m2tts_tpu_torch import smoke
 from m2tts_tpu_torch.evaluation import evaluate
 from m2tts_tpu_torch.models.tts_model import M2TTS
 from m2tts_tpu_torch.serving import export_model, pipeline, synthesize
@@ -74,7 +76,8 @@ def test_no_jax_or_reference_package_imported():
                  "models.discriminator", "ops.stft", "evaluation.stoi",
                  "evaluation.metrics", "serving.export",
                  "serving.export_model", "serving.synthesize",
-                 "evaluation.evaluate", "frontend.native", "utils.device"):
+                 "evaluation.evaluate", "frontend.native", "utils.device",
+                 "ops.grouped_conv", "smoke"):
         assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
@@ -109,6 +112,8 @@ def test_entry_points_default_to_cuda():
         Stage2Trainer(Config({"model": FLAGSHIP_MODEL}))
     with pytest.raises(RuntimeError):
         train_stage2.main(["training.max_steps=1"])
+    with pytest.raises(RuntimeError):
+        smoke.main([])  # the smoke suite without --cpu
 
 
 def test_clis_and_artifacts_default_to_cuda(tmp_path):

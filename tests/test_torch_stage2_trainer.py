@@ -18,7 +18,8 @@ tiny size:
 - ``init_generator_from`` a port stage-1 checkpoint;
 - the OOM guard, the bounded blow-up rewind (restored before the raise)
   and the refusal to checkpoint non-finite weights;
-- the device cache's windows, ``disc_lowering``, the mesh guard, the
+- the device cache's windows, ``disc_lowering`` (``packed`` gives the
+  module's logits and features within 1e-4), the mesh guard, the
   warning for ``alternate_gd`` with the adversarial guard, and the CLI.
 """
 
@@ -342,6 +343,27 @@ def test_disc_lowering_parses(tmp_path, value, sn, resolved):
                          discriminator_spectral_norm=sn))
     assert t.disc_lowering == resolved
     t.close()
+
+
+def test_disc_lowering_packed_equals_native(tmp_path):
+    """``_disc_apply`` through the packed lowering gives the module's
+    logits and features on the same weights (JAX
+    ``tests/test_train_stage2.py::test_disc_lowering_packed_equals_native``)."""
+    t = port(tiny_config(tmp_path, disc_lowering="packed"))
+    assert t.disc_lowering == "packed"
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 512, 1)).astype(np.float32))
+    d_params = t._live(t.d_names, t.d_params, detach=True)
+    lp, fp = t._disc_apply(d_params, audio)
+    t.disc_lowering = "native"
+    ln, fn = t._disc_apply(d_params, audio)
+    t.close()
+    for a, b in zip(ln, lp):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    assert [len(f) for f in fp] == [len(f) for f in fn] == [6, 6, 6]
+    for fa, fb in zip(fn, fp):
+        for a, b in zip(fa, fb):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
 def test_disc_lowering_rejects_other_values(tmp_path):
