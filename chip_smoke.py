@@ -17,6 +17,17 @@ shows through the launch counters that the path ran the kernels. Then the
 serving paths on the same weights and texts, each with the counters zeroed
 just before it and read just after:
 
+- ``cuda_graphs`` (first, on the main path's weights): every path of
+  this script runs as CUDA graph replays, one graph per bucket key
+  (``utils/graphs.py``); this phase holds replay against
+  ``disable_graphs()`` eager (``GRAPH_TOL``): batch 64 × the 512-frame
+  bucket in bf16 and f32, int16 and μ-law with the mel, at two duration
+  scales and two text sets, and a same-bucket ``synthesize_stream`` of
+  three batches; one stream a dtype and a ``StreamBatcher`` of 4, chunk
+  by chunk; ``swap_params`` against a fresh Synthesizer (and back); 8 f32
+  stage-1 steps at each bucket. Figures of both ways: audio-s/s and busy
+  share at 64 × 512, first chunk and ms a chunk, bf16 ms a step and busy
+  share, and ``warmup(full=True)``'s capture seconds and pool memory;
 - ``streaming``: ``StreamingSynthesizer`` (64-frame chunks, 4-frame halo)
   in f32 (``vocoder_tc32.cu``) and bf16 (``vocoder_tc.cu``), each stream
   held against its mel vocoded whole by the kernel and against the plain
@@ -122,6 +133,7 @@ one stream of the longest text, a ``train_profile`` line: the same for
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -563,19 +575,6 @@ def streaming_phase(model, scale: float, sample_rate: int, card: str,
                                      model.vocoder_channels, rates,
                                      4 if cd == "f32" else 2)
         chunk_bound, chunk_bound_by = bound(flops, nbytes, cd)
-        first, rtf, per_chunk = [], [], []
-        for i in range(12):  # warm: every text has streamed once above
-            text = EVAL_TEXTS[i % len(EVAL_TEXTS)]
-            t0 = time.perf_counter()
-            it = s.stream(text, scale)
-            c0 = next(it)
-            t1 = time.perf_counter()
-            rest = list(it)
-            t2 = time.perf_counter()
-            samples = len(c0) + sum(len(c) for c in rest)
-            first.append((t1 - t0) * 1e3)
-            rtf.append((t2 - t0) / (samples / sample_rate))
-            per_chunk.append((t2 - t1) * 1e3 / len(rest))
         out[cd] = {
             "kernel": "fused_vocoder_tc32" if cd == "f32"
             else "fused_vocoder_tc",
@@ -585,17 +584,39 @@ def streaming_phase(model, scale: float, sample_rate: int, card: str,
             "max_abs_err_vs_whole": err_whole,
             "max_abs_err_vs_plain": err_plain,
             "short_path_max_abs_err": err_short,
-            "first_chunk_ms_median": float(np.median(first)),
-            "first_chunk_ms_min": min(first), "first_chunk_ms_max": max(first),
-            "host_ms_per_later_chunk_median": float(np.median(per_chunk)),
-            "stream_rtf_median": float(np.median(rtf)),
-            "timed_streams": len(first),
+            # warm: every text has streamed once above
+            **stream_timing(s, scale, sample_rate),
             "chunk_device_ms": chunk_ms, "chunk_plain_ms": plain_ms,
             "chunk_bound_ms": chunk_bound, "chunk_bound_by": chunk_bound_by,
             "chunk_shape": list(win.shape)}
     emit(out)
     out["streamers"], out["streams"] = ss, streams
     return out
+
+
+def stream_timing(s, scale: float, sample_rate: int, n: int = 12) -> dict:
+    """``n`` streams of the eight texts in turn through ``s``: the median
+    (and range) of the host wall to the first chunk, of the host wall a
+    later chunk and of the real-time factor."""
+    first, rtf, per_chunk = [], [], []
+    for i in range(n):
+        text = EVAL_TEXTS[i % len(EVAL_TEXTS)]
+        t0 = time.perf_counter()
+        it = s.stream(text, scale)
+        c0 = next(it)
+        t1 = time.perf_counter()
+        rest = list(it)
+        t2 = time.perf_counter()
+        samples = len(c0) + sum(len(c) for c in rest)
+        first.append((t1 - t0) * 1e3)
+        rtf.append((t2 - t0) / (samples / sample_rate))
+        per_chunk.append((t2 - t1) * 1e3 / len(rest))
+    return {"first_chunk_ms_median": float(np.median(first)),
+            "first_chunk_ms_min": min(first),
+            "first_chunk_ms_max": max(first),
+            "host_ms_per_later_chunk_median": float(np.median(per_chunk)),
+            "stream_rtf_median": float(np.median(rtf)),
+            "timed_streams": len(first)}
 
 
 def stream_batcher_phase(streamer, solo, scale: float, card: str,
@@ -825,6 +846,328 @@ def http_phase(synth, streamer, scale: float, card: str, lsb_bar,
            "wall_s": wall, "stream_http_chunks": len(chunks) - 1,
            "stream_vs_solo": stream_d, "healthz": health,
            "reload": reloaded["step"]}
+    emit(out)
+    return out
+
+
+# graph replay against disable_graphs() eager: the same kernels in the
+# same order on the same inputs, so PCM, mu-law bytes and mel must be
+# equal; the f32 stage-1 steps (under deterministic algorithms) are held
+# to 1e-6 relative (losses, and each weight tensor against its largest
+# value)
+GRAPH_TOL = {"pcm_lsb": 0, "mel_abs": 0.0, "loss_rel": 1e-6,
+             "params_rel": 1e-6}
+# the stage-1 runs held graph against eager: f32 at lr 1e-3 from step 2
+GRAPH_TRAIN = {**TRAIN_OVERRIDES, "training.bf16": False,
+               "training.transfer_dtype": None,
+               "training.warmup_steps": 2, "training.validate_samples": False}
+GRAPH_STEPS = 8
+
+
+def _held_results(got, want, what: str) -> dict:
+    """Graph results against eager ones: frames and μ-law bytes equal, PCM
+    within ``GRAPH_TOL`` LSB, mel within its abs bar."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} results, eager {len(want)}")
+    lsb, mel = 0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g["frames"] != w["frames"]:
+            raise RuntimeError(f"{what} {i}: {g['frames']} frames, eager "
+                               f"{w['frames']}")
+        lsb = max(lsb, pcm_diff(g["audio_pcm"], w["audio_pcm"],
+                                (GRAPH_TOL["pcm_lsb"], None),
+                                f"{what} {i}")["max_pcm_lsb"])
+        if "audio_mulaw" in w and not np.array_equal(g["audio_mulaw"],
+                                                     w["audio_mulaw"]):
+            raise RuntimeError(f"{what} {i}: μ-law bytes differ")
+        if "mel" in w:
+            mel = max(mel, float(np.abs(g["mel"] - w["mel"]).max(initial=0)))
+    if mel > GRAPH_TOL["mel_abs"]:
+        raise RuntimeError(f"{what}: mel differs by {mel}")
+    return {"max_pcm_lsb": lsb, "mel_max_abs": mel}
+
+
+def _throughput(s, texts, scale: float, iters: int = 5) -> dict:
+    """audio-s/s and ms a call of ``iters`` ``synthesize_batch`` calls."""
+    torch.cuda.synchronize()
+    t0, audio_s = time.perf_counter(), 0.0
+    for _ in range(iters):
+        res = s.synthesize_batch(texts, scale)
+        audio_s += sum(r["frames"] for r in res) * s.upsample / s.sample_rate
+    wall = time.perf_counter() - t0
+    return {"audio_s_per_s": audio_s / wall, "ms_per_call": wall / iters * 1e3}
+
+
+def _profile_figures(run, card: str, phase: str) -> dict:
+    """The busy share of one ``run()`` and the device's idle time in it
+    (the host's time the device does not hide)."""
+    p = profile_batch(run, card, phase=phase)
+    return {"wall_ms": p["wall_us"] / 1e3,
+            "device_busy_ms": p["device_busy_us"] / 1e3,
+            "device_idle_ms": (p["wall_us"] - p["device_busy_us"]) / 1e3,
+            "busy_share": p["busy_share"], "device_ops": p["device_ops"]}
+
+
+def _stream_chunks(s, texts, scale: float) -> list:
+    return [list(s.stream(t, scale)) for t in texts]
+
+
+def _same_chunks(got, want, what: str) -> int:
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            raise RuntimeError(f"{what} {i}: {len(g)} chunks, eager {len(w)}")
+        for j, (a, b) in enumerate(zip(g, w)):
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"{what} {i} chunk {j}: max abs "
+                                   f"{np.abs(a - b).max(initial=0)}")
+        n += len(g)
+    return n
+
+
+def _batcher_run(streamer, scale: float):
+    """Four concurrent streams through a StreamBatcher of 4 (a long
+    admission window, so the four are admitted as one batch in every
+    run); (chunks per stream, chunk calls)."""
+    from m2tts_tpu_torch.serving.stream_batcher import StreamBatcher
+
+    sb = StreamBatcher(streamer, max_streams=4, max_wait_ms=500.0)
+    try:
+        got, _ = run_threads(lambda i: list(sb.stream(
+            EVAL_TEXTS[i], scale, timeout=120)), 4)
+    finally:
+        sb.close()
+    return got, sb.chunk_dispatches
+
+
+def _train_steps(trainer, batches: dict, steps: int) -> list:
+    """``steps`` micro-steps at each bucket in turn, the step counter (and
+    so the dropout noise) advancing; the losses of every step."""
+    out = []
+    for b in batches.values():
+        for _ in range(steps):
+            losses = trainer._guarded_step(b)
+            if losses is None:
+                raise RuntimeError(f"step {trainer.step} hit an OOM")
+            out.append({k: v.item() for k, v in losses.items()})
+            trainer.step += 1
+    return out
+
+
+def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
+                      card: str, counters: Counters, buckets: dict) -> dict:
+    """One CUDA graph per bucket (``utils/graphs.py``) held against
+    ``disable_graphs()`` eager on the card, at the flagship's widths: the
+    batch path (batch 64 × the 512-frame bucket, bf16 and f32, int16 and
+    μ-law with the mel, two duration scales, two text sets, a same-bucket
+    ``synthesize_stream`` of three batches), one stream in each dtype and a
+    StreamBatcher of 4, ``swap_params``, and 8 f32 stage-1 steps at each
+    bucket; with the figures of both: audio-s/s, busy share, first chunk,
+    ms a step, and what ``warmup(full=True)`` costs in capture seconds and
+    pool memory."""
+    import tempfile
+
+    from m2tts_tpu_torch.models.tts_model import build_model, init_params
+    from m2tts_tpu_torch.serving import pipeline
+    from m2tts_tpu_torch.serving.streaming import StreamingSynthesizer
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING)
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    def _mode(mode: str):
+        return (disable_graphs() if mode == "eager"
+                else contextlib.nullcontext())
+
+    t_phase = time.perf_counter()
+    counters.zero()
+    out = {"phase": "cuda_graphs", "card": card, "tol": GRAPH_TOL}
+    runners = []
+
+    # ---- the batch path: replays against eager, one bucket
+    sets = [(EVAL_TEXTS * 8)[:64],
+            ((EVAL_TEXTS[3:] + EVAL_TEXTS[:3]) * 8)[:64]]
+    scales = (scale, 0.95 * scale)
+    batch = {}
+    for cd, s in (("bf16", synth), ("f32", synth_f32)):
+        worst = {"max_pcm_lsb": 0, "mel_max_abs": 0.0}
+        for texts in sets:
+            packed = pipeline.encode_packed_batch(
+                s.text_processor, texts, s.batch_buckets, s.text_buckets)
+            for sc in scales:
+                peak = int(s.predict_frames(packed[:, :-1], packed[:, -1],
+                                            sc)[:len(texts)].max())
+                if pipeline._bucket_for(peak, s.frame_buckets) != 512:
+                    raise RuntimeError(f"{peak} frames at scale {sc}: not "
+                                       "the 512-frame bucket")
+                for kw in ({}, {"pcm_format": "mulaw", "want_mel": True}):
+                    with disable_graphs():
+                        want = s.synthesize_batch(texts, sc, **kw)
+                    s.synthesize_batch(texts, sc, **kw)  # a first call
+                    got = s.synthesize_batch(texts, sc, **kw)
+                    d = _held_results(got, want, f"{cd} batch")
+                    worst = {k: max(worst[k], d[k]) for k in worst}
+        batches = [sets[0], sets[1], sets[0][::-1]]
+        with disable_graphs():
+            want = [s.synthesize_batch(b, scale) for b in batches]
+        for g, w in zip(s.synthesize_stream(iter(batches), scale), want):
+            d = _held_results(g, w, f"{cd} synthesize_stream")
+            worst = {k: max(worst[k], d[k]) for k in worst}
+        batch[cd] = worst
+    out["batch_vs_eager"] = batch
+
+    # ---- figures of the batch path, graph and eager in turns
+    texts64 = sets[0]
+    turns = []
+    for mode in ("eager", "graph", "graph", "eager"):
+        with _mode(mode):
+            turns.append({"mode": mode,
+                          **_throughput(synth, texts64, scale)})
+    profiles = {}
+    for mode in ("graph", "eager"):
+        with _mode(mode):
+            profiles[mode] = _profile_figures(
+                lambda: synth.synthesize_batch(texts64, scale), card,
+                f"cuda_graphs_batch_{mode}")
+    out["batch64_bucket512_bf16"] = {"turns": turns, "profile": profiles}
+
+    # ---- warmup(full=True) at these buckets: capture seconds, the pool
+    warm = {}
+    for cd in ("bf16", "f32"):
+        w = pipeline.Synthesizer(synth.model, compute_dtype=cd,
+                                 vocoder_backend="auto", device="cuda",
+                                 **buckets)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        shapes = w.warmup(full=True)
+        secs = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        stats = w.graph_stats()
+        warm[cd] = {"shapes": shapes, "graphs": stats["graphs"],
+                    "seconds": secs,
+                    "pool_reserved_gb": (torch.cuda.memory_reserved() - r0)
+                    / 1e9,
+                    "allocated_gb": (torch.cuda.memory_allocated() - a0) / 1e9}
+        del w
+        torch.cuda.empty_cache()
+    out["warmup_full"] = warm
+
+    # ---- swap_params: the new weights' output is a fresh Synthesizer's
+    orig = {k: v.detach().clone() for k, v in synth.model.state_dict().items()}
+    other = init_params(build_model(FLAGSHIP_MODEL),
+                        torch.Generator().manual_seed(SEED + 7), "cuda")
+    synth.swap_params(other.state_dict())
+    fresh = pipeline.Synthesizer(other, vocoder_backend="auto",
+                                 device="cuda", **buckets)
+    swapped = {}
+    for i in range(2):  # a first call, then a replay
+        swapped[i] = _held_results(
+            synth.synthesize_batch(EVAL_TEXTS, scale),
+            fresh.synthesize_batch(EVAL_TEXTS, scale), "after swap_params")
+    synth.swap_params(orig)
+    restored = _held_results(synth.synthesize_batch(EVAL_TEXTS, scale),
+                             results["bf16"], "swapped back")
+    out["swap_params"] = {"vs_fresh": swapped[1], "restored": restored}
+    del fresh, other, orig
+
+    # ---- streaming: one stream a dtype, a StreamBatcher of 4
+    ss = {cd: StreamingSynthesizer(synth.model, chunk_frames=64,
+                                   max_frames=512, text_bucket=128,
+                                   compute_dtype=cd, device="cuda")
+          for cd in ("f32", "bf16")}
+    stream = {}
+    for cd, st in ss.items():
+        with disable_graphs():
+            want = _stream_chunks(st, EVAL_TEXTS, scale)
+            eager_t = stream_timing(st, scale, synth.sample_rate)
+        n = _same_chunks(_stream_chunks(st, EVAL_TEXTS, scale), want,
+                         f"{cd} stream")  # first calls
+        n += _same_chunks(_stream_chunks(st, EVAL_TEXTS, scale), want,
+                          f"{cd} stream")  # replays
+        stream[cd] = {"chunks_equal": n, "graph": stream_timing(
+            st, scale, synth.sample_rate), "eager": eager_t}
+        runners += [st.graphs, st.vocoder.graphs]
+    with disable_graphs():
+        want, calls_eager = _batcher_run(ss["bf16"], scale)
+    got, calls_graph = _batcher_run(ss["bf16"], scale)
+    n = _same_chunks(got, want, "batched stream")
+    got, _ = _batcher_run(ss["bf16"], scale)
+    n += _same_chunks(got, want, "batched stream")
+    stream["batcher_bf16"] = {"streams": 4, "chunks_equal": n,
+                              "chunk_calls_eager": calls_eager,
+                              "chunk_calls_graph": calls_graph}
+    out["streaming"] = stream
+
+    # ---- stage 1: 8 f32 steps a bucket, graph against eager; then the
+    # bf16 flagship's ms a step and busy share both ways
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as tdir:
+        tr = {mode: Stage1Trainer(train_config(
+            FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{tdir}/{mode}",
+            overrides=GRAPH_TRAIN), device="cuda")
+            for mode in ("eager", "graph")}
+        tbatches = bucket_batches(tr["eager"], tr["eager"]._put)
+        # without deterministic algorithms two eager runs part too: the
+        # backward's atomics (gather's scatter-add, cuDNN's weight
+        # gradients) round differently run to run, and Adam moves a
+        # weight whose gradient is rounding noise by ±lr a step
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            with disable_graphs():
+                le = _train_steps(tr["eager"], tbatches, GRAPH_STEPS)
+            lg = _train_steps(tr["graph"], tbatches, GRAPH_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        loss_rel = max(abs(g[k] - e[k]) / max(abs(e[k]), 1e-30)
+                       for g, e in zip(lg, le) for k in e)
+        sd_e, sd_g = (tr[m].model.state_dict() for m in ("eager", "graph"))
+        params_rel = max(((sd_g[k] - v).abs().max()
+                          / v.abs().max().clamp_min(1e-30)).item()
+                         for k, v in sd_e.items())
+        moved = max((sd_e[k] - v.cuda()).abs().max().item() for k, v in
+                    tr["graph"]._oom_snapshot[0]["params"].items())
+        if loss_rel > GRAPH_TOL["loss_rel"] \
+                or params_rel > GRAPH_TOL["params_rel"] or moved <= 0:
+            raise RuntimeError(f"stage-1 graph vs eager: losses {loss_rel}, "
+                               f"params {params_rel} (moved {moved})")
+        train = {"steps": len(lg), "buckets": [list(k) for k in tbatches],
+                 "loss_max_rel": loss_rel, "params_max_rel": params_rel,
+                 "weights_moved_max_abs": moved,
+                 "graphs": tr["graph"]._graphs.stats()["graphs"]}
+        del tr, sd_e, sd_g
+        bf = Stage1Trainer(train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                                        f"{tdir}/bf16"), device="cuda")
+        bb = bucket_batches(bf, bf._put)
+        ms = {}
+        for mode in ("eager", "graph", "graph", "eager"):
+            with _mode(mode):
+                ms.setdefault(mode, []).append(
+                    {f"{t},{m}": step_ms(bf._train_step, b)
+                     for (t, m), b in bb.items()})
+        b512 = bb[tuple(bf.buckets[1])]
+        prof = {}
+        for mode in ("graph", "eager"):
+            with _mode(mode):
+                prof[mode] = _profile_figures(
+                    lambda: [bf._train_step(b512) for _ in range(5)], card,
+                    f"cuda_graphs_train_{mode}")
+        train["bf16_ms_per_step_by_bucket"] = ms
+        train["bf16_profile_5_steps_128_512"] = prof
+        runners.append(bf._graphs)
+        bf.close()
+        del bf, bb, b512
+    out["stage1"] = train
+    torch.cuda.empty_cache()
+
+    runners += [synth._graphs, synth_f32._graphs]
+    out["graphs_held"] = sum(len(r) for r in runners)
+    out["launches"] = counters.read()
+    if min(out["launches"][k] for k in ("fused_vocoder_tc",
+                                        "fused_vocoder_tc32")) < 1:
+        raise RuntimeError(f"cuda_graphs skipped a kernel: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -2850,12 +3193,15 @@ def main() -> int:
         results[name] = res
     # throughput at batch 64 x the 512-frame bucket, bf16 (the auto path)
     texts64 = (EVAL_TEXTS * 8)[:64]
-    synth.synthesize_batch(texts64, duration_scale=scale)
+    for _ in range(2):  # the bucket's capture, then its first replay
+        synth.synthesize_batch(texts64, duration_scale=scale)
     torch.cuda.synchronize()
-    iters, audio_s = 5, 0.0
+    iters, audio_s, call_ms = 5, 0.0, []
     t0 = time.perf_counter()
     for _ in range(iters):
+        t1 = time.perf_counter()
         out = synth.synthesize_batch(texts64, duration_scale=scale)
+        call_ms.append((time.perf_counter() - t1) * 1e3)
         audio_s += sum(r["frames"] for r in out) * synth.upsample \
             / synth.sample_rate
     wall = time.perf_counter() - t0
@@ -2867,7 +3213,7 @@ def main() -> int:
           "frames": [r["frames"] for r in results["bf16"]],
           "launches": launches,
           "audio_s_per_s_batch64_bucket512_bf16": audio_s / wall,
-          "card": card})
+          "ms_per_call": call_ms, "card": card})
     if "--profile" in sys.argv[1:]:
         emit(profile_batch(lambda: synth.synthesize_batch(
             texts64, duration_scale=scale), card))
@@ -2900,6 +3246,11 @@ def main() -> int:
         vs_mm[cd] = {"max_pcm_lsb": lsb, "mean_pcm_lsb": total / n,
                      "max_pcm_lsb_bar": max_bar}
     emit({"phase": "main_path_vs_mm", "frames_equal": True, **vs_mm})
+    # ---- 4b. the CUDA graphs of the main path, streaming and stage 1
+    # against eager, on the weights the main path ran (http's /reload
+    # swaps them), with figures
+    graphs_path = cuda_graphs_phase(synth, synth_f32, scale, results, card,
+                                    counters, buckets)["launches"]
 
     # ---- 5. streaming, the batchers and the HTTP server; each path with
     # the counters zeroed just before it and read just after
@@ -2910,7 +3261,8 @@ def main() -> int:
         for cd, ss in streaming["streamers"].items():
             emit(profile_batch(lambda: list(ss.stream(EVAL_TEXTS[4], scale)),
                                card, phase=f"stream_profile_{cd}"))
-    paths = {"main_path": launches, "streaming": streaming["launches"]}
+    paths = {"main_path": launches, "cuda_graphs": graphs_path,
+             "streaming": streaming["launches"]}
     paths["stream_batcher"] = stream_batcher_phase(
         ss16, streaming["streams"]["bf16"], scale, card,
         counters)["launches"]

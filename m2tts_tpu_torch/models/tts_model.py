@@ -211,7 +211,8 @@ class M2TTS(nn.Module):
                  duration_scale=1.0,
                  max_frames: int = 1000) -> Dict[str, Any]:
         """Inference acoustic path: text → mel zeroed past each utterance's
-        total frames (no vocoder)."""
+        total frames (no vocoder). ``duration_scale``: a float, or a 0-d
+        tensor (what a CUDA graph takes as an input)."""
         enc, mask = self.text_encoder(phoneme_ids, phoneme_lengths)
         duration_pred = self.duration_predictor(enc)
         scaled = duration_pred * torch.as_tensor(

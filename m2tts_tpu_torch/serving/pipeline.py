@@ -10,15 +10,24 @@ a (batch, text, frames) bucket from a small set:
 4. quantise to int16 PCM (or G.711 μ-law) on the device and trim on the
    host to ``total_frames × upsample``.
 
-PyTorch runs eagerly, so a bucket is a set of shapes, not a compiled
-graph; ``warmup`` runs each reachable shape once.
+On CUDA a bucket is one CUDA graph, the counterpart of the JAX package's
+one jitted program per bucket (``utils/graphs.py``): the probe is one graph
+per (batch, text) and the synthesis (the bf16 model copy, the acoustic
+model, the vocoder kernel, quantisation and μ-law) one per (batch, text,
+frames, ``want_mel``, ``pcm_format``), each captured at its first call and
+replayed with one launch after that; the duration scale is a device tensor
+copied into the graph's input. ``warmup`` captures every reachable key.
+Inside ``utils.graphs.disable_graphs()`` and on the CPU the same code runs
+eagerly.
 
 With ``mesh=`` (a ('data', 'model') ``DeviceMesh``) the Synthesizer is SPMD:
 every rank calls the same method with the same texts, runs its rows of the
 bucket (the transformer split over 'model' by the TP rules) and gathers
 the results, so every rank returns the single-device result. A server's
 rank 0 ``lead``s: each device call is first broadcast to the other ranks,
-which run ``serve_followers``.
+which run ``serve_followers``. A Synthesizer on a mesh runs eagerly: its
+weights are DTensor-placed and its results are gathered through the
+process group, which no graph captures here.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from m2tts_tpu_torch.parallel import partition
 from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import resolve_device
+from m2tts_tpu_torch.utils.graphs import GraphRunner
 
 logger = logging.getLogger(__name__)
 
@@ -261,15 +271,19 @@ class Synthesizer:
         self.vocoder_backend, self.compute_dtype = resolve_backend(
             vocoder_backend, compute_dtype, self.device)
         self.config: Optional[Config] = None
+        # one CUDA graph per bucket key (eager on the CPU and on a mesh)
+        self._graphs = GraphRunner(self.device) if mesh is None else None
         self._drop_caches()
 
     def _drop_caches(self) -> None:
         """Forget every derived copy of the weights (bf16 model, packed
-        vocoder weights)."""
+        vocoder weights) and every graph, which reads them."""
         self._bf16_model: Optional[M2TTS] = None
         self._vocode = (None if self.vocoder_backend == "torch" else
                         make_vocoder_fn(self.model, self.vocoder_backend,
                                         self.compute_dtype))
+        if self._graphs is not None:
+            self._graphs.drop()
 
     def _synth_model(self) -> M2TTS:
         if self.compute_dtype == "f32":
@@ -283,12 +297,28 @@ class Synthesizer:
         return self._bf16_model
 
     # -- device work --------------------------------------------------------
-    def _to_device(self, packed: np.ndarray):
-        """A packed host batch on the device: on a mesh, this rank's rows."""
+    def _to_device(self, packed: np.ndarray) -> torch.Tensor:
+        """A packed host batch [B, T+1] for the device: pinned host memory
+        that the graph's input is copied from (on a mesh, this rank's rows
+        on the device)."""
         if self.mesh is not None:
             packed = pmesh.rows(packed, *pmesh.batch_sharding(self.mesh))
-        t = torch.from_numpy(packed).to(self.device, non_blocking=True)
-        return t[:, :-1], t[:, -1]
+            return torch.from_numpy(packed).to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(packed))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    @staticmethod
+    def _scale(duration_scale) -> torch.Tensor:
+        """The duration scale as a 0-d f32 tensor: a graph input, never a
+        constant of the capture."""
+        return torch.tensor(float(duration_scale), dtype=torch.float32)
+
+    def _call(self, key, fn, *args):
+        """``fn(*args)`` on the device: a replay of the key's graph; eager
+        on a mesh."""
+        if self._graphs is None:
+            return fn(*(a.to(self.device) for a in args))
+        return self._graphs(key, fn, *args)
 
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's rows of a result, whole (as it is without a
@@ -301,21 +331,33 @@ class Synthesizer:
         """Per-utterance frame counts from the f32 duration probe."""
         packed = np.concatenate([np.asarray(ids, np.int32),
                                  np.asarray(lengths, np.int32)[:, None]], 1)
-        return self._gather(self._probe(*self._to_device(packed),
-                                        duration_scale)).cpu().numpy()
+        return self._gather(self._probe(
+            self._to_device(packed), self._scale(duration_scale))
+        ).cpu().numpy()
 
-    def _probe(self, ids, lengths, duration_scale: float) -> torch.Tensor:
-        return probe_frames(self.model, ids, lengths, torch.tensor(
-            duration_scale, dtype=torch.float32))
+    def _probe(self, packed: torch.Tensor, scale: torch.Tensor
+               ) -> torch.Tensor:
+        return self._call(("probe",), lambda p, s: probe_frames(
+            self.model, p[:, :-1], p[:, -1], s), packed, scale)
 
-    def _run(self, ids, lengths, duration_scale: float, max_frames: int,
-             want_mel: bool, pcm_format: str) -> Dict[str, torch.Tensor]:
+    def _run(self, packed: torch.Tensor, scale: torch.Tensor,
+             max_frames: int, want_mel: bool, pcm_format: str
+             ) -> Dict[str, torch.Tensor]:
+        def synth(p, s):
+            return self._synth(p[:, :-1], p[:, -1], s, max_frames, want_mel,
+                               pcm_format)
+
+        return self._call(("synth", max_frames, want_mel, pcm_format), synth,
+                          packed, scale)
+
+    def _synth(self, ids, lengths, scale, max_frames: int, want_mel: bool,
+               pcm_format: str) -> Dict[str, torch.Tensor]:
         model = self._synth_model()
         if self.vocoder_backend == "torch":
-            out = model.synthesize(ids, lengths, duration_scale, max_frames)
+            out = model.synthesize(ids, lengths, scale, max_frames)
             audio = out["audio_output"][..., 0]
         else:
-            out = model.acoustic(ids, lengths, duration_scale, max_frames)
+            out = model.acoustic(ids, lengths, scale, max_frames)
             audio = self._vocode(out["mel_output"].float())
         pcm = quantize_pcm16(audio)
         if pcm_format == "mulaw":
@@ -337,15 +379,13 @@ class Synthesizer:
                                      self.batch_buckets, self.text_buckets)
         self._announce("launch", texts, duration_scale, max_frames, want_mel,
                        pcm_format)
-        ids, lengths = self._to_device(packed)
+        packed, scale = self._to_device(packed), self._scale(duration_scale)
         if max_frames is None:
             # every rank sees every row's count, so all pick one bucket
-            totals = self._gather(self._probe(ids, lengths,
-                                              duration_scale)).cpu().numpy()
+            totals = self._gather(self._probe(packed, scale)).cpu().numpy()
             max_frames = _bucket_for(int(totals[: len(texts)].max()),
                                      self.frame_buckets)
-        out = self._run(ids, lengths, duration_scale, max_frames, want_mel,
-                        pcm_format)
+        out = self._run(packed, scale, max_frames, want_mel, pcm_format)
         return {k: self._gather(v) for k, v in out.items()}, max_frames
 
     def _collect(self, out, max_frames: int, n: int, want_mel: bool,
@@ -558,19 +598,29 @@ class Synthesizer:
 
     @torch.no_grad()
     def warmup(self, full: bool = False, want_mel: bool = False) -> int:
-        """Run every reachable shape once (builds the kernels, fills the
-        allocator's pools); returns the number of shapes run."""
+        """Run every reachable shape once: on CUDA that captures the probe's
+        graph of every (batch, text) and the synthesis graph of every
+        (batch, text, frames) with ``want_mel`` and int16 PCM (a μ-law key
+        captures at its first request); returns the number of shapes
+        run."""
         n = 0
+        scale = self._scale(1.0)
         for b, t, frames in self.reachable_shapes(full):
             packed = np.zeros((b, t + 1), np.int32)
             packed[:, -1] = 1
-            ids, lengths = self._to_device(packed)
-            self._probe(ids, lengths, 1.0)
-            self._run(ids, lengths, 1.0, frames, want_mel, "int16")
+            packed = self._to_device(packed)
+            self._probe(packed, scale)
+            self._run(packed, scale, frames, want_mel, "int16")
             n += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return n
+
+    def graph_stats(self) -> Dict:
+        """The graph runner's counts (``GraphRunner.stats``); no graphs on
+        a mesh."""
+        return ({"graphs": 0} if self._graphs is None
+                else self._graphs.stats())
 
 
 def from_config(config, seed: int = 0, vocoder_backend: str = "auto",

@@ -20,7 +20,8 @@ Two coalescing stages:
 The chunk function treats every batch row alone, so batched windows give
 each stream what its solo stream gives (``StreamingSynthesizer.stream``).
 Both workers run under ``torch.inference_mode`` in their own threads, and
-every device call goes through the shared ``lock``.
+every device call goes through the shared ``lock``. On CUDA each call is a
+replay of the streamer's graph for its batch bucket (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -195,8 +196,8 @@ class StreamBatcher:
 
     def warmup(self) -> int:
         """Run the acoustic pass and the chunk function once at every
-        reachable batch (builds the kernels, fills the allocator's pools);
-        returns the number of calls made."""
+        reachable batch (builds the kernels; on CUDA captures both graphs
+        of every batch); returns the number of calls made."""
         st, sv = self.streamer, self._sv
         C = sv.model.mel_channels
         n = 0

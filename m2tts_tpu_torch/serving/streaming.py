@@ -21,6 +21,14 @@ does. On CUDA that call is the f32 kernel on ``[1, T, C]`` (the CUDA
 kernel takes any length, so the TPU package's widening of the halo to
 16-frame tiles is not needed either).
 
+On CUDA the chunk call is one CUDA graph per batch of ``[B, W, C]``
+windows, the acoustic pass one per (batch, text bucket), and the fused
+acoustic pass + first chunk one per text bucket (``utils/graphs.py``, the
+counterparts of the JAX package's jitted ``run_chunk``, ``acoustic`` and
+``acoustic_first``); a window is copied into the chunk graph's input and
+the duration scale into the acoustic graphs'. The short path stays eager
+(one length per call).
+
 Every generator here runs under ``torch.inference_mode`` in the thread that
 consumes it.
 """
@@ -41,10 +49,16 @@ from m2tts_tpu_torch.serving.pipeline import (make_vocoder_fn,
                                               resolve_backend,
                                               split_text_to_budget)
 from m2tts_tpu_torch.utils.device import resolve_device
+from m2tts_tpu_torch.utils.graphs import GraphRunner
 
 # Receptive field of the vocoder in mel frames: input conv ±1, first tconv
 # ±1, then under ±0.5 for every supported rate config; 4 is conservative.
 DEFAULT_HALO_FRAMES = 4
+
+
+def _scale(duration_scale) -> torch.Tensor:
+    """The duration scale as a 0-d f32 tensor (a graph input)."""
+    return torch.tensor(float(duration_scale), dtype=torch.float32)
 
 
 def _start_fetch(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[object]]:
@@ -92,21 +106,27 @@ class StreamingVocoder:
         self.upsample = model.total_upsample
         self._window = self.halo + self.chunk_frames + self.halo
 
-        # _run_chunk: f32 mel [B, window, C] → f32 audio [B, window·U] in
-        # the stream's dtype; _full: the short path, always f32
-        self._run_chunk: Callable[[torch.Tensor], torch.Tensor]
+        # _chunk_fn: f32 mel [B, window, C] → f32 audio [B, window·U] in
+        # the stream's dtype (``_run_chunk`` runs it as a graph); _full: the
+        # short path, always f32
+        self._chunk_fn: Callable[[torch.Tensor], torch.Tensor]
         self._full: Callable[[torch.Tensor], torch.Tensor]
         if vocoder_backend == "torch":
             dt = DTYPES[compute_dtype]
             module = (model.vocoder if dt == torch.float32
                       else copy.deepcopy(model.vocoder).to(dt))
-            self._run_chunk = lambda mel: module(mel.to(dt))[..., 0].float()
+            self._chunk_fn = lambda mel: module(mel.to(dt))[..., 0].float()
             self._full = lambda mel: model.vocoder(mel)[..., 0]
         else:
-            self._run_chunk = make_vocoder_fn(model, vocoder_backend,
-                                              compute_dtype)
-            self._full = (self._run_chunk if compute_dtype == "f32" else
+            self._chunk_fn = make_vocoder_fn(model, vocoder_backend,
+                                             compute_dtype)
+            self._full = (self._chunk_fn if compute_dtype == "f32" else
                           make_vocoder_fn(model, vocoder_backend, "f32"))
+        self.graphs = GraphRunner(self.device)
+
+    def _run_chunk(self, mel: torch.Tensor) -> torch.Tensor:
+        """The chunk call on windows [B, W, C]: one graph per B."""
+        return self.graphs(("chunk",), self._chunk_fn, mel)
 
     def _window_start(self, ci: int, total: int) -> int:
         """Start frame of chunk ``ci``'s window in a ``total``-frame mel."""
@@ -197,22 +217,42 @@ class StreamingSynthesizer:
         # longer than a window, so it is enqueued right behind the acoustic
         # pass (see _stream_one); needs a mel at least one window long
         self._fuse_first = self.max_frames >= self.vocoder._window
+        # the acoustic graphs; the chunk graphs are the vocoder's
+        self.graphs = GraphRunner(self.device)
 
     def _acoustic(self, ids: torch.Tensor, lengths: torch.Tensor,
                   duration_scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ids [B, S], lengths [B] on the device → (f32 mel [B, max_frames,
-        C], total frames [B] int32, uncapped), in the stream's compute
-        dtype. The durations come from the predictor in that dtype and are
-        scaled in f32, as the JAX streaming pass does (the batch path's
-        frame probe is f32 throughout)."""
+        """ids [B, S], lengths [B] → (f32 mel [B, max_frames, C], total
+        frames [B] int32, uncapped) on the device, in the stream's compute
+        dtype: one graph per (B, S)."""
+        return self.graphs(("acoustic",), self._acoustic_fn, ids, lengths,
+                           _scale(duration_scale))
+
+    def _acoustic_fn(self, ids: torch.Tensor, lengths: torch.Tensor,
+                     scale: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The acoustic pass; ``scale`` is a 0-d f32 tensor. The durations
+        come from the predictor in the compute dtype and are scaled in f32,
+        as the JAX streaming pass does (the batch path's frame probe is
+        f32 throughout)."""
         m = self._acoustic_model
         enc, mask = m.text_encoder(ids, lengths)
         durations = m.duration_predictor(enc) * mask.to(enc.dtype)
         regulated, frame_mask, total = regulate_lengths(
-            enc, durations.float() * float(duration_scale), self.max_frames)
+            enc, durations.float() * scale, self.max_frames)
         mel = m.decoder(regulated, frame_mask if m.mask_decoder else None)
         return mel.float(), total
+
+    def _acoustic_first_fn(self, ids: torch.Tensor, lengths: torch.Tensor,
+                           scale: torch.Tensor):
+        """The acoustic pass and chunk 0 in one graph: (mel, total, chunk
+        0's centre followed by the frame count, in one f32 vector)."""
+        sv = self.vocoder
+        mel, total = self._acoustic_fn(ids, lengths, scale)
+        audio0 = sv._chunk_fn(mel[:, :sv._window].contiguous())
+        head = audio0[0, :sv.chunk_frames * sv.upsample]
+        return mel, total, torch.cat([head, total.to(head.dtype)])
 
     def split_long(self, text: str) -> List[str]:
         """Texts over the phoneme budget split by sentence (the splitter of
@@ -240,20 +280,22 @@ class StreamingSynthesizer:
     def _stream_one(self, text: str, duration_scale: float
                     ) -> Iterator[np.ndarray]:
         enc = self.text_processor.batch([text], self.text_bucket)
-        ids = torch.from_numpy(enc["phoneme_ids"]).to(self.device)
-        lengths = torch.from_numpy(enc["lengths"]).to(self.device)
+        ids = torch.from_numpy(enc["phoneme_ids"])
+        lengths = torch.from_numpy(enc["lengths"])
         sv = self.vocoder
         W, n0 = sv._window, sv.chunk_frames * sv.upsample
-        mel, total = self._acoustic(ids, lengths, duration_scale)
         if not self._fuse_first:
+            mel, total = self._acoustic(ids, lengths, duration_scale)
             frames = min(int(total[0]), self.max_frames)
             yield from sv.stream(mel[0], frames)
             return
-        # acoustic pass and chunk 0 enqueued with no host sync between
+        # acoustic pass and chunk 0 in one call with no host sync between
         # them, then one device→host copy carries chunk 0's centre and the
         # frame count
-        audio0 = sv._run_chunk(mel[:, :W])[0, :n0]
-        host = torch.cat([audio0, total.to(audio0.dtype)]).cpu().numpy()
+        mel, _, head = self.graphs(("acoustic_first",),
+                                   self._acoustic_first_fn, ids, lengths,
+                                   _scale(duration_scale))
+        host = head.cpu().numpy()
         frames = min(int(host[n0]), self.max_frames)
         if frames <= W:
             # chunk 0's fixed window would read past the utterance's end

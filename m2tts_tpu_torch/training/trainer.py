@@ -25,7 +25,16 @@ arithmetic:
 - an OOM in the forward or backward pass drops the step's gradients and
   goes on; an OOM inside the optimizer update (which may have updated some
   tensors) restores the last host snapshot and rewinds the step. Non-finite
-  losses rewind to the same snapshot, a bounded number of times.
+  losses rewind to the same snapshot, a bounded number of times;
+- on CUDA without a mesh and with k = 1 the step is one CUDA graph per
+  data bucket, the counterpart of JAX's ``jax.jit(step_fn)``
+  (``utils/graphs.py``): forward, backward, one global norm, the clip and
+  a capturable AdamW whose lr is a device tensor, with the dropout
+  generator registered with the graph and reseeded by the host before each
+  replay, so a replay draws eager's masks. The batch is copied into the
+  graph's inputs. A bucket's first step runs eagerly and captures; an OOM
+  there restores the last snapshot. Loading optimizer state drops the
+  graphs. Validation, accumulation (k > 1) and the mesh run eagerly.
 
 The state a checkpoint holds is ``{"params": state_dict, "opt_state":
 Optimizer.state_dict(), "step": int}``; ``utils.checkpoint.load_for_inference``
@@ -70,6 +79,7 @@ from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import (MemoryTracker, ThermalMonitor,
                                           resolve_device)
+from m2tts_tpu_torch.utils.graphs import GraphRunner
 from m2tts_tpu_torch.utils.metrics_logger import MetricsLogger
 from m2tts_tpu_torch.utils.profiling import StepProfiler
 from m2tts_tpu_torch.utils.tree import cast_params_bf16, tree_finite
@@ -181,30 +191,48 @@ class Optimizer:
     accumulator then zeroed. ``count`` is the number of applied updates,
     which the schedule and Adam's bias correction see. Nothing here waits
     for the device.
+
+    ``capturable`` (CUDA parameters only): AdamW with ``capturable=True``,
+    its step counts and the lr on the device, so that ``apply`` can be
+    captured in a CUDA graph; ``set_lr`` writes the schedule's value into
+    the lr tensor before each update, outside any graph. Without it (the
+    CPU) the lr is a host float, as in every torch optimizer.
     """
 
-    def __init__(self, cfg, named_params: Iterable[Tuple[str, torch.Tensor]]):
+    def __init__(self, cfg, named_params: Iterable[Tuple[str, torch.Tensor]],
+                 capturable: bool = False):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.schedule = make_lr_schedule(cfg)
         self.max_norm = float(cfg.get("gradient_clip_norm", 5.0))
         self.k = int(cfg.get("gradient_accumulation_steps", 1))
+        self.capturable = capturable
+        lr = (torch.zeros((), dtype=torch.float32,
+                          device=self.params[0].device)
+              if capturable else 0.0)
         self.adamw = torch.optim.AdamW(
-            self.params, lr=0.0,
+            self.params, lr=lr,
             betas=(float(cfg.get("adam_b1", 0.9)),
                    float(cfg.get("adam_b2", 0.999))),
-            eps=1e-8, weight_decay=float(cfg.get("weight_decay", 1e-6)))
+            eps=1e-8, weight_decay=float(cfg.get("weight_decay", 1e-6)),
+            capturable=capturable)
         self.count = 0
         self.mini_step = 0
+        #: state loads so far: a graph captured before a load reads state
+        #: tensors that are gone
+        self.loads = 0
         self.acc: Optional[List[torch.Tensor]] = (
             [torch.zeros_like(p) for p in self.params] if self.k > 1
             else None)
 
-    def clip(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def clip(self, grads: Sequence[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """``optax.clip_by_global_norm``: ``(g / norm) * max_norm`` when
-        ``norm >= max_norm``, else ``g`` unchanged, chosen on the device."""
-        norm = global_norm(grads)
+        ``norm >= max_norm``, else ``g`` unchanged, chosen on the device.
+        ``norm``: the global norm of ``grads`` where the caller has it."""
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.max_norm
         one = torch.ones_like(norm)
         denom = torch.where(keep, one, norm)
@@ -212,24 +240,24 @@ class Optimizer:
         return torch._foreach_mul(torch._foreach_div(list(grads), denom),
                                   scale)
 
+    def set_lr(self) -> None:
+        """The schedule's lr for the next applied update (``count``)."""
+        lr = self.schedule(self.count)
+        if self.capturable:
+            self.adamw.param_groups[0]["lr"].fill_(lr)
+        else:
+            self.adamw.param_groups[0]["lr"] = lr
+
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor],
-               scale: Optional[torch.Tensor] = None) -> None:
-        """One micro-step. ``scale`` (a 0-d device tensor) multiplies the
-        applied update, weight decay included, as an optax update scaled
-        before ``apply_updates``: ``p_old + scale·(p_new − p_old)``; the
-        Adam moments advance as without it."""
-        if self.acc is not None:
-            n = self.mini_step
-            for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            if n + 1 < self.k:
-                self.mini_step = n + 1
-                return
-            grads = self.acc
-        for p, g in zip(self.params, self.clip(grads)):
+    def apply(self, grads: Sequence[torch.Tensor],
+              scale: Optional[torch.Tensor] = None,
+              norm: Optional[torch.Tensor] = None) -> None:
+        """The device half of one applied update, at the lr ``set_lr``
+        wrote: clip, AdamW, the update scale. It reads and writes device
+        tensors only, so a graph may hold it; the caller counts it
+        (``count += 1``)."""
+        for p, g in zip(self.params, self.clip(grads, norm)):
             p.grad = g
-        self.adamw.param_groups[0]["lr"] = self.schedule(self.count)
         before = (None if scale is None  # copies of the weights
                   else torch._foreach_mul(self.params, 1.0))
         self.adamw.step()
@@ -239,6 +267,27 @@ class Optimizer:
             torch._foreach_add_(self.params, before)
         for p in self.params:
             p.grad = None
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor],
+               scale: Optional[torch.Tensor] = None,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """One micro-step. ``scale`` (a 0-d device tensor) multiplies the
+        applied update, weight decay included, as an optax update scaled
+        before ``apply_updates``: ``p_old + scale·(p_new − p_old)``; the
+        Adam moments advance as without it. ``norm``: the global norm of
+        ``grads`` where the caller computed it (the clip then takes it; it
+        is not the norm of an accumulated mean)."""
+        if self.acc is not None:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            if n + 1 < self.k:
+                self.mini_step = n + 1
+                return
+            grads, norm = self.acc, None
+        self.set_lr()
+        self.apply(grads, scale, norm)
         self.count += 1
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
@@ -262,7 +311,8 @@ class Optimizer:
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         """Global tensors (a checkpoint's) are placed as each parameter is:
-        copied to its device, or sharded as its DTensor."""
+        copied to its device, or sharded as its DTensor. The state tensors
+        are new ones (``loads`` counts the loads)."""
         def like(t, p):
             if isinstance(p, DTensor):
                 return partition.shard_like(t, p)
@@ -274,14 +324,16 @@ class Optimizer:
         for n, p in zip(self.names, self.params):
             if n in state["mu"]:
                 self.adamw.state[p] = {
-                    "step": torch.tensor(float(self.count),
-                                         dtype=torch.float32),
+                    "step": torch.tensor(
+                        float(self.count), dtype=torch.float32,
+                        device=p.device if self.capturable else "cpu"),
                     "exp_avg": like(state["mu"][n], p),
                     "exp_avg_sq": like(state["nu"][n], p)}
         if self.acc is not None:
             acc = state.get("acc_grads")
             for n, a in zip(self.names, self.acc):
                 a.copy_(like(acc[n], a)) if acc else a.zero_()
+        self.loads += 1
 
 
 def build_dataset(cfg, keep_audio: bool = False):
@@ -391,7 +443,14 @@ class Stage1Trainer:
             "data.buckets", [[64, 256], [128, 512], [256, 1000]])]
         self.param_names = [n for n, _ in self.model.named_parameters()]
         self._params = [p for _, p in self.model.named_parameters()]
-        self.optimizer = Optimizer(tcfg, self.model.named_parameters())
+        # one CUDA graph per data bucket for the whole step (forward,
+        # backward, clip, AdamW), as JAX jits it; eager on the CPU, on a
+        # mesh and under accumulation
+        single = self.device.type == "cuda" and self.mesh is None
+        self.optimizer = Optimizer(tcfg, self.model.named_parameters(),
+                                   capturable=single)
+        self._graphs = GraphRunner(self.device) if single else None
+        self._graph_loads = self.optimizer.loads
         self._noise = torch.Generator(device=self.device)
         for m in self.model.modules():
             if isinstance(m, Dropout):
@@ -446,6 +505,8 @@ class Stage1Trainer:
                 "step": self.step}
 
     def _restore(self, state: Dict, step: int) -> None:
+        """Weights copied in place, new optimizer state tensors (so the
+        step graphs go at the next step), the step."""
         params = state["params"]
         if self.mesh is not None:
             params = partition.shard_tree(params, self.mesh)
@@ -504,8 +565,11 @@ class Stage1Trainer:
     def _forward_backward(self, batch: Dict[str, torch.Tensor]):
         """(losses with ``grad_norm``, the raw gradient of every parameter
         in ``param_names`` order; zeros for the vocoder's, which the loss
-        does not reach)."""
+        does not reach), with this step's dropout noise."""
         self._noise.manual_seed(self._noise_seed(self.step))
+        return self._grads(batch)
+
+    def _grads(self, batch: Dict[str, torch.Tensor]):
         loss, losses = self._loss_fn(batch)
         grads = torch.autograd.grad(loss, self._params,
                                     materialize_grads=True)
@@ -518,13 +582,63 @@ class Stage1Trainer:
 
     def _train_step(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
+        """One micro-step: a replay of the bucket's graph where
+        ``_graphed``, else eager."""
+        if self._graphed():
+            return self._graph_step(batch)
         losses, grads = self._forward_backward(batch)
-        self.optimizer.update(grads)
+        self.optimizer.update(grads, norm=losses["grad_norm"])
+        return losses
+
+    def _graphed(self) -> bool:
+        """Whether a step is one graph replay: on CUDA without a mesh, with
+        k = 1 (under accumulation ``update`` picks its branch on the host)
+        and outside ``disable_graphs()``."""
+        return (self._graphs is not None and self._graphs.active()
+                and self.optimizer.acc is None)
+
+    #: the batch entries a step reads, in the graph's argument order
+    _STEP_KEYS = ("phoneme_ids", "text_lengths", "durations", "mel",
+                  "mel_lengths")
+
+    def _step_fn(self, *tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device half of a step (forward, backward, clip, AdamW) on
+        the batch's tensors: what the step graph holds."""
+        losses, grads = self._grads(dict(zip(self._STEP_KEYS, tensors)))
+        self.optimizer.apply(grads, norm=losses["grad_norm"])
+        return losses
+
+    def _graph_step(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """One step as a replay of its bucket's graph: the host seeds the
+        dropout generator and writes the lr, the graph does the rest."""
+        if self.optimizer.loads != self._graph_loads:
+            self._graphs.drop()  # the optimizer's state tensors are new
+            self._graph_loads = self.optimizer.loads
+        self._noise.manual_seed(self._noise_seed(self.step))
+        self.optimizer.set_lr()
+        losses = self._graphs(("step",), self._step_fn,
+                              *(batch[k] for k in self._STEP_KEYS),
+                              generators=(self._noise,))
+        self.optimizer.count += 1
         return losses
 
     def _guarded_step(self, batch: Dict[str, torch.Tensor]
                       ) -> Optional[Dict[str, torch.Tensor]]:
         """One micro-step; None after an out-of-memory error, recovered."""
+        if self._graphed():
+            try:
+                return self._graph_step(batch)
+            except torch.cuda.OutOfMemoryError:
+                # a replay allocates nothing: this was a bucket's first
+                # call (its eager run, which may have written some
+                # tensors, or its capture); restore all
+                self._clear_cache()
+                logger.error("OOM in the first step of a bucket's graph at "
+                             "step %d — restoring the last snapshot (step "
+                             "%d)", self.step, self._oom_snapshot[1])
+                self._restore(*self._oom_snapshot)
+                return None
         try:
             losses, grads = self._forward_backward(batch)
         except torch.cuda.OutOfMemoryError:
@@ -536,7 +650,7 @@ class Stage1Trainer:
             self._clear_cache()
             return None
         try:
-            self.optimizer.update(grads)
+            self.optimizer.update(grads, norm=losses["grad_norm"])
         except torch.cuda.OutOfMemoryError:
             if self.mesh is not None:
                 raise

@@ -19,8 +19,16 @@ loaded on the CPU against a CPU Synthesizer of the same weights, ±1 LSB;
 the synthesize CLI's WAV against ``Synthesizer`` through the kernel,
 0 LSB), and a mesh on the card (an NCCL world of one rank: three stage-1
 steps on its (1, 1) mesh against the same steps without a mesh, and a
-batch through the kernel on the mesh against ``mesh=None``, 0 LSB). They
-skip without a card. This file imports no JAX, so on the card it runs without the test
+batch through the kernel on the mesh against ``mesh=None``, 0 LSB), and
+the CUDA graphs (``utils/graphs.py``) against ``disable_graphs()`` eager:
+the Synthesizer at three duration scales, two text sets, int16 and μ-law
+with the mel (equal, and the replays' counted launches equal eager's),
+``synthesize_stream`` of three same-bucket batches (each result survives
+the next replay), ``swap_params`` against a fresh Synthesizer, a stream
+chunk by chunk, six f32 stage-1 steps over two buckets under
+deterministic algorithms (rtol 1e-6), and a capture that fails (a host
+sync) raising and leaving the runner usable. They skip without a card.
+This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -35,6 +43,7 @@ value, of the CPU's f32 and of f64 (``DISC_F64_REL``); a GAN step's losses
 rtol 1e-5 and its params within lr/10.
 """
 
+import contextlib
 import itertools
 import threading
 from pathlib import Path
@@ -171,11 +180,11 @@ def test_auto_synthesizer_runs_the_kernel(cd):
                       - b["audio_pcm"]).max(initial=0) <= lsb
 
 
-def _tiny_model(rates=(8, 8, 2, 2)):
+def _tiny_model(rates=(8, 8, 2, 2), seed=0):
     return init_params(M2TTS(hidden_dim=32, mel_channels=16,
                              vocoder_channels=32, text_encoder_layers=1,
                              decoder_layers=1, upsample_rates=rates),
-                       torch.Generator().manual_seed(0), "cuda")
+                       torch.Generator().manual_seed(seed), "cuda")
 
 
 @needs_cuda
@@ -652,3 +661,149 @@ def test_nccl_mesh_of_one_equals_no_mesh(tmp_path, no_tf32):
     for (frames, pcm), r in zip(out, ref):
         assert frames == r["frames"] > 0
         np.testing.assert_array_equal(pcm, r["audio_pcm"])
+
+
+# -- CUDA graphs (utils/graphs.py): replay against disable_graphs() eager --
+
+GRAPH_BUCKETS = dict(text_buckets=(16, 32), frame_buckets=(64, 128),
+                     batch_buckets=(1, 2, 4))
+GRAPH_TEXTS = (["hello world", "the quick brown fox jumps", "a"],
+               ["streaming in batches", "hello there", "one more"])
+
+
+def _synth_out(s, texts, scale, **kw):
+    return [(r["frames"], r["audio_pcm"], r.get("audio_mulaw"),
+             r.get("mel")) for r in s.synthesize_batch(texts, scale, **kw)]
+
+
+def _same_out(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x[0] == y[0]
+        for u, v in zip(x[1:], y[1:]):
+            assert (u is None) == (v is None)
+            if u is not None:
+                np.testing.assert_array_equal(u, v)
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_synthesizer_graphs_equal_eager(cd):
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    s = Synthesizer(_tiny_model(), compute_dtype=cd, **GRAPH_BUCKETS)
+    for texts in GRAPH_TEXTS:
+        for scale in (4.8, 6.0, 7.8):
+            for kw in ({}, {"pcm_format": "mulaw", "want_mel": True}):
+                with disable_graphs():
+                    before = _counts()[cd]
+                    want = _synth_out(s, texts, scale, **kw)
+                    eager_launches = _counts()[cd] - before
+                _synth_out(s, texts, scale, **kw)  # eager + capture
+                before = _counts()[cd]
+                got = _synth_out(s, texts, scale, **kw)  # replays
+                assert _counts()[cd] - before == eager_launches
+                _same_out(got, want)
+    stats = s.graph_stats()
+    # the probe, int16 and μ-law + mel graphs of each bucket reached
+    assert stats["graphs"] >= 3 and stats["replays"] > 0
+
+
+@needs_cuda
+def test_synthesize_stream_results_survive_the_next_replay():
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    batches = [["hello world"], ["the world"], ["hello there"]]
+    s.synthesize_batch(batches[0], 12.0)  # capture the bucket
+    streamed = list(s.synthesize_stream(iter(batches), 12.0))
+    for got, texts in zip(streamed, batches):
+        _same_out([(r["frames"], r["audio_pcm"]) for r in got],
+                  [(r["frames"], r["audio_pcm"])
+                   for r in s.synthesize_batch(texts, 12.0)])
+
+
+@needs_cuda
+def test_swap_params_drops_the_graphs():
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    texts = GRAPH_TEXTS[0]
+    s.synthesize_batch(texts, 12.0)
+    s.synthesize_batch(texts, 12.0)
+    other = _tiny_model(seed=1)
+    s.swap_params(other.state_dict())
+    assert s.graph_stats()["graphs"] == 0
+    fresh = Synthesizer(other, **GRAPH_BUCKETS)
+    for _ in range(2):  # eager + capture, then a replay
+        _same_out(_synth_out(s, texts, 12.0), _synth_out(fresh, texts, 12.0))
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_streaming_graphs_equal_eager(cd):
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    ss = StreamingSynthesizer(_tiny_model(), chunk_frames=16, max_frames=128,
+                              text_bucket=32, compute_dtype=cd)
+    text = "the quick brown fox jumps over the lazy dog"
+    with disable_graphs():
+        want = list(ss.stream(text, 12.0))
+    for _ in range(2):  # eager + capture, then replays
+        got = list(ss.stream(text, 12.0))
+        assert len(got) == len(want) > 2
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert len(ss.graphs) == 1 and len(ss.vocoder.graphs) == 1
+
+
+@needs_cuda
+def test_failed_capture_raises_and_leaves_the_stream_usable():
+    from m2tts_tpu_torch.utils.graphs import GraphRunner
+
+    runner = GraphRunner("cuda")
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        runner(("sync",), lambda t: t * float(t.sum().item()), x)
+    assert len(runner) == 0
+    for _ in range(2):
+        assert torch.equal(runner(("ok",), lambda t: t * 2, x), x * 2)
+    assert len(runner) == 1
+
+
+def _graph_trainer(tmp_path, graphed: bool):
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    cfg = _train_config(tmp_path, gradient_clip_norm=0.5)
+    cfg.set("model.text_encoder.dropout", 0.1)
+    cfg.set("data.buckets", [[24, 64], [48, 128]])
+    t = Stage1Trainer(cfg, dataset=DummyDataset(**DS_KW), device="cuda")
+    batches = list(make_batches(t.dataset, 8, t.buckets, seed=5))[:6]
+    losses = []
+    with contextlib.nullcontext() if graphed else disable_graphs():
+        for b in batches:
+            losses.append({k: v.item() for k, v in
+                           t._guarded_step(t._put(b)).items()})
+            t.step += 1
+    return t, losses
+
+
+@pytest.fixture()
+def deterministic(monkeypatch):
+    """Deterministic algorithms: without them two eager runs part too (the
+    backward's atomics round differently run to run, and Adam moves a
+    weight whose gradient is rounding noise by ±lr a step)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@needs_cuda
+def test_train_step_graph_equals_eager(tmp_path, no_tf32, deterministic):
+    eager, le = _graph_trainer(tmp_path / "eager", graphed=False)
+    graph, lg = _graph_trainer(tmp_path / "graph", graphed=True)
+    assert graph._graphs.stats()["replays"] > 0
+    assert graph.optimizer.count == eager.optimizer.count == 6
+    for a, b in zip(le, lg):
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-6, err_msg=k)
+    for k, v in eager.model.state_dict().items():
+        torch.testing.assert_close(graph.model.state_dict()[k], v,
+                                   atol=1e-6, rtol=1e-6, msg=k)

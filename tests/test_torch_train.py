@@ -360,13 +360,13 @@ def test_oom_guard(tmp_path, where):
     else:
         real = t.optimizer.update
 
-        def flaky(grads):
+        def flaky(grads, **kw):
             calls["n"] += 1
             if calls["n"] == 2:
                 with torch.no_grad():  # a half-written update
                     t.optimizer.params[0].add_(1e3)
                 raise torch.cuda.OutOfMemoryError("simulated OOM")
-            return real(grads)
+            return real(grads, **kw)
 
         t.optimizer.update = flaky
     last = t.train()
