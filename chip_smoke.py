@@ -63,8 +63,8 @@ Then stage-2 GAN training on those checkpoints (``Stage2Trainer`` on
 segments, spectral norm, envelope loss, EMA; only the loop's lengths and
 the warmup are overridden, ``STAGE2_OVERRIDES``):
 
-- ``train_stage2``: 30 steps through the prefetcher and 30 with the device
-  data cache, each warm-started from the ``train`` phase's stage-1
+- ``train_stage2``: 30 steps (CUDA graph replays from a bucket's second
+  step on) through the prefetcher and 30 with the device data cache, each warm-started from the ``train`` phase's stage-1
   checkpoint, validating once with the quality pass (STOI, MCD), pinning
   ``best/`` and writing a checkpoint; steps/s, ms per fused step by bucket,
   peak memory, every logged loss (fails on a non-finite one);
@@ -92,10 +92,21 @@ Then the phase-packed discriminator (``models/discriminator.py``'s
   (batch 32, bf16, 8192-sample segments, no spectral norm) with
   ``disc_lowering: packed`` and with ``native``, warm-started from the
   ``train`` phase's checkpoint (the packed run must call
-  ``packed_multiscale_apply`` three times a step); ms per fused step by
-  bucket, a 3-step profile at (128, 512) for each; one f32 step held
+  ``packed_multiscale_apply`` three times in each step that runs the
+  Python step: a bucket's first, eager then captured; a CUDA graph replay
+  runs none); ms per fused step by bucket and a 3-step profile at
+  (128, 512) for each, as graph replays and eagerly; one f32 step held
   packed against native (``PACKED_VS_NATIVE``); the packed run's
   checkpoint served through ``vocoder_tc.cu`` at 0 LSB;
+- ``train_stage2_graphs``: the training graphs held against
+  ``disable_graphs()`` eager (deterministic algorithms where they exist:
+  bitwise, or ``GRAPH_NONDET`` with the ops that have none named): the
+  recipe's fused step, packed with ``alternate_gd`` and k = 2, native on
+  the device cache, validation's forward after steps and after a restore,
+  stage 1 at k = 2 and its eval step; and timed both ways: ms a GAN step
+  of the recipe by bucket, busy share and device operations of 3 steps,
+  beside packed and native from ``train_stage2_packed``, validation's
+  forward, stage 1's micro-step and eval step at k = 2;
 - ``pipeline_smoke``: ``m2tts_tpu_torch.smoke.main([])`` on the card,
   7/7 parts, its vocoder launches counted.
 
@@ -134,6 +145,7 @@ one stream of the longest text, a ``train_profile`` line: the same for
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -349,12 +361,26 @@ _CONV_RE = re.compile(r"conv|fprop|dgrad|wgrad|cudnn", re.I)
 _GEMM_RE = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|sm90_", re.I)
 
 
+def _union_us(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_batch(run, card: str, top: int = 12,
                   phase: str = "main_path_profile") -> dict:
     """Device time of one ``run()`` by kernel name (torch.profiler), the
     device's busy share of the host wall time around it, and its device
     operations (of them the layout transposes, cuDNN's convolution kernels
-    and the other GEMM kernels)."""
+    and the other GEMM kernels). ``device_busy_us`` sums the operations'
+    times; ``device_union_us`` is the time at least one ran (the union of
+    their intervals), which is less where operations overlap (a graph
+    replay may run them concurrently), and ``union_share`` its share of
+    the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,6 +404,10 @@ def profile_batch(run, card: str, top: int = 12,
     busy_us = sum(k[1] for k in kernels)
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    union_us = _union_us(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
     kinds = {"transpose_ops": 0, "conv_ops": 0, "gemm_ops": 0}
     for n, _, c in kernels:
         for kind, pattern in (("transpose_ops", _TRANSPOSE_RE),
@@ -388,6 +418,7 @@ def profile_batch(run, card: str, top: int = 12,
                 break
     return {"phase": phase, "card": card, "wall_us": wall_us,
             "device_busy_us": busy_us, "busy_share": busy_us / wall_us,
+            "device_union_us": union_us, "union_share": union_us / wall_us,
             "device_ops": sum(k[2] for k in kernels),
             **kinds,
             "top": [{"name": n[:80], "us": t, "calls": c}
@@ -904,8 +935,10 @@ def _profile_figures(run, card: str, phase: str) -> dict:
     p = profile_batch(run, card, phase=phase)
     return {"wall_ms": p["wall_us"] / 1e3,
             "device_busy_ms": p["device_busy_us"] / 1e3,
-            "device_idle_ms": (p["wall_us"] - p["device_busy_us"]) / 1e3,
-            "busy_share": p["busy_share"], "device_ops": p["device_ops"]}
+            "device_union_ms": p["device_union_us"] / 1e3,
+            "device_idle_ms": (p["wall_us"] - p["device_union_us"]) / 1e3,
+            "busy_share": p["busy_share"], "union_share": p["union_share"],
+            "device_ops": p["device_ops"]}
 
 
 def _stream_chunks(s, texts, scale: float) -> list:
@@ -938,6 +971,15 @@ def _batcher_run(streamer, scale: float):
     finally:
         sb.close()
     return got, sb.chunk_dispatches
+
+
+def graph_mode(mode: str):
+    """A context in which the graph runners replay (``"graph"``) or run
+    eagerly (``"eager"``: ``disable_graphs()``)."""
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    return (disable_graphs() if mode == "eager"
+            else contextlib.nullcontext())
 
 
 def _train_steps(trainer, batches: dict, steps: int) -> list:
@@ -975,10 +1017,7 @@ def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
                                               FLAGSHIP_TRAINING)
     from m2tts_tpu_torch.utils.graphs import disable_graphs
 
-    def _mode(mode: str):
-        return (disable_graphs() if mode == "eager"
-                else contextlib.nullcontext())
-
+    _mode = graph_mode
     t_phase = time.perf_counter()
     counters.zero()
     out = {"phase": "cuda_graphs", "card": card, "tol": GRAPH_TOL}
@@ -1643,10 +1682,12 @@ def train_stage2_vs_cpu_phase(out_dir: str, card: str) -> dict:
     constant, both guards on, on the card and on the CPU from the same
     weights and batch, TF32 off on the card; and the same two steps in f64
     on the CPU, the reference the generator's side is held to
-    (``STAGE2_VS_CPU``)."""
+    (``STAGE2_VS_CPU``). Eager (``disable_graphs()``): the gradients are
+    copied to the host inside the step."""
     from m2tts_tpu_torch.data.dataset import make_batches
     from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
     from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, STAGE2_TRAINING
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
 
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1700,8 +1741,9 @@ def train_stage2_vs_cpu_phase(out_dir: str, card: str) -> dict:
 
     steps = []
     for _ in range(2):
-        m = {run: {k: v.item() for k, v in tr[run].train_step(
-            dict(batches[run])).items()} for run in tr}
+        with disable_graphs():
+            m = {run: {k: v.item() for k, v in tr[run].train_step(
+                dict(batches[run])).items()} for run in tr}
         if not set(m["cpu"]) == set(m["cuda"]) == set(m["f64"]):
             raise RuntimeError(f"metric keys differ: {m}")
         st = {"losses_cpu": m["cpu"],
@@ -2037,10 +2079,12 @@ def packed_vs_native_step(out_dir: str) -> dict:
     FLAGSHIP_TRAINING recipe at the (128, 512) bucket, batch 8, 8192-sample
     segments, dropout 0, constant lr, with the packed lowering and with the
     native one from the same weights and batch, and the native step in f64
-    as the generator's reference (``PACKED_VS_NATIVE``)."""
+    as the generator's reference (``PACKED_VS_NATIVE``). Eager
+    (``disable_graphs()``): the gradients are recorded inside the step."""
     from m2tts_tpu_torch.data.dataset import make_batches
     from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
     from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, FLAGSHIP_TRAINING
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
 
     extra = {"model.text_encoder.dropout": 0.0, "training.bf16": False,
              "training.batch_size": 8, "training.lr_scheduler": "constant",
@@ -2081,8 +2125,9 @@ def packed_vs_native_step(out_dir: str) -> dict:
     batches = {"native": host, "packed": host, "f64": {
         k: v.astype(np.float64) if getattr(v, "dtype", None) == np.float32
         else v for k, v in host.items()}}
-    losses = {run: {k: v.item() for k, v in tr[run].train_step(
-        dict(batches[run])).items()} for run in tr}
+    with disable_graphs():
+        losses = {run: {k: v.item() for k, v in tr[run].train_step(
+            dict(batches[run])).items()} for run in tr}
 
     def dist(a, b):  # relative L2 distance of gradient list a from b
         num = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b)))
@@ -2154,12 +2199,15 @@ def train_stage2_packed_phase(out_dir: str, card: str, stage1_dir,
     segments, no spectral norm) with ``disc_lowering: packed`` and the same
     steps with ``native``, each warm-started from the stage-1 checkpoint;
     the packed run must go through ``packed_multiscale_apply``
-    (``PackedRouteCounts``) with no strided conv left plain. Then ms per fused step by
-    bucket in turns, a 3-step profile at (128, 512) for each (device
-    operations by kind, busy share), one f32 step held packed against
-    native (``packed_vs_native_step``), and the packed run's checkpoint
-    served through ``from_checkpoint`` (``auto``: ``vocoder_tc.cu``) at
-    0 LSB against its in-memory weights."""
+    (``PackedRouteCounts``) with no strided conv left plain. The steps
+    are CUDA graph replays (a bucket's first step runs eagerly and
+    captures: the only steps that call the Python apply). Then ms per
+    fused step by bucket in turns, as graph replays and eagerly
+    (``disable_graphs()``), a 3-step profile at (128, 512) for each both
+    ways (device operations by kind, busy share), one f32 step held
+    packed against native (``packed_vs_native_step``), and the packed
+    run's checkpoint served through ``from_checkpoint`` (``auto``:
+    ``vocoder_tc.cu``) at 0 LSB against its in-memory weights."""
     from m2tts_tpu_torch.models.tts_model import build_model
     from m2tts_tpu_torch.serving import pipeline
     from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
@@ -2186,12 +2234,18 @@ def train_stage2_packed_phase(out_dir: str, card: str, stage1_dir,
             wall = time.perf_counter() - t1
         if low == "packed":  # the weights its last checkpoint holds
             served_weights = _eval_weights(t)
-        # three applies a fused step: D on [real; fake], G's fake, G's real
-        want = {"applies": 3 * steps, "plain_strided": 0} if low == "packed" \
-            else {"applies": 0}
+        # three applies a fused step (D on [real; fake], G's fake, G's
+        # real), made by a bucket's first step twice (its eager run and
+        # its capture) and by a replay never
+        graphs = t._graphs.stats()
+        want = ({"applies": 6 * graphs["graphs"], "plain_strided": 0}
+                if low == "packed" else {"applies": 0})
         if any(counts[k] != v for k, v in want.items()) \
-                or (low == "packed" and counts["packed"] < 1):
-            raise RuntimeError(f"{low} run: packed apply counts {counts}")
+                or (low == "packed" and counts["packed"] < 1) \
+                or graphs["graphs"] + graphs["replays"] != steps \
+                or graphs["replays"] < 1:
+            raise RuntimeError(f"{low} run: packed apply counts {counts}, "
+                               f"graphs {graphs}")
         rows = _read_metrics(cfg.get("paths.log_dir"))
         logged = {int(r["step"]): {k: float(v) for k, v in r.items()
                                    if v and _is_loss(k)}
@@ -2203,23 +2257,31 @@ def train_stage2_packed_phase(out_dir: str, card: str, stage1_dir,
         runs[low] = {"wall_s": wall, "steps_per_s": steps / wall,
                      "max_memory_allocated_gb":
                          torch.cuda.max_memory_allocated() / 1e9,
-                     "packed_apply_counts": counts, "losses_logged": logged}
+                     "packed_apply_counts": counts, "graphs": graphs,
+                     "losses_logged": logged}
         trainers[low] = t
     rng = np.random.default_rng(SEED)
     ref = trainers["native"]
     batches = bucket_batches(
         ref, lambda b: ref._transfer.transfer(ref._prepare(b, rng)),
         ref._max_audio_samples())
-    for low in ("native", "packed", "packed", "native"):
-        for (tb, fb), b in batches.items():
-            runs[low].setdefault("ms_per_step_by_bucket", {}).setdefault(
-                f"{tb},{fb}", []).append(step_ms(trainers[low].train_step, b,
-                                                 iters=5))
+    for mode in ("graph", "eager"):
+        with graph_mode(mode):
+            for low in ("native", "packed", "packed", "native"):
+                for (tb, fb), b in batches.items():
+                    runs[low].setdefault("ms_per_step_by_bucket", {}) \
+                        .setdefault(mode, {}).setdefault(
+                            f"{tb},{fb}", []).append(step_ms(
+                                trainers[low].train_step, b, iters=5))
     b512 = batches[tuple(ref.buckets[1])]
     for low in ("native", "packed"):
-        runs[low]["profile_3_steps_128_512"] = profile_batch(
-            lambda: [trainers[low].train_step(b512) for _ in range(3)],
-            card, phase=f"train_stage2_packed_profile_{low}")
+        for mode in ("graph", "eager"):
+            with graph_mode(mode):
+                runs[low].setdefault("profile_3_steps_128_512", {})[mode] = \
+                    profile_batch(lambda: [trainers[low].train_step(b512)
+                                           for _ in range(3)], card,
+                                  phase=f"train_stage2_packed_profile_{low}"
+                                        f"_{mode}")
     del batches, b512
     out = {"phase": "train_stage2_packed", "card": card,
            "overrides": PACKED_OVERRIDES,
@@ -2259,6 +2321,311 @@ def train_stage2_packed_phase(out_dir: str, card: str, stage1_dir,
     for t in trainers.values():
         t.close()
     torch.cuda.empty_cache()
+    return out
+
+
+# graph replay against disable_graphs() eager for the training graphs
+# (train_stage2_graphs), under deterministic algorithms where they exist:
+# bitwise; an op without a deterministic CUDA version (named by its
+# warning) is listed, and its configuration held to GRAPH_NONDET, relative
+# to each tensor's largest value, instead
+GRAPH_NONDET = 1e-5
+# the steps of each held configuration: a bucket's first (eager, then the
+# capture) and one replay
+S2_GRAPH_STEPS = 2
+
+
+@contextlib.contextmanager
+def deterministic_ops():
+    """Deterministic algorithms where they exist (``warn_only``); yields a
+    list that is filled, at exit, with the ops that warned that they have
+    no deterministic version."""
+    import warnings
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    nondet: list = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield nondet
+        finally:
+            torch.use_deterministic_algorithms(False)
+            nondet.extend(sorted({
+                str(w.message).split(" does not have")[0][:120]
+                for w in caught if "deterministic" in str(w.message)}))
+
+
+def _max_rel(got: dict, want: dict) -> float:
+    """The largest difference of two dicts of tensors, each relative to
+    the largest value of its tensor in ``want``."""
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        worst = max(worst, float((g - w).abs().max()
+                                 / w.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def _s2_state(t) -> dict:
+    out = {f"g.{k}": v for k, v in t.model.state_dict().items()}
+    out.update({f"d.{k}": v for k, v in t.discriminator.state_dict().items()})
+    if t.ema is not None:
+        out.update({f"ema.{n}": e for n, e in zip(t.g_names, t.ema)})
+    for net, opt in (("g", t.g_opt), ("d", t.d_opt)):
+        sd = opt.state_dict()
+        for m in ("mu", "nu"):
+            out.update({f"{net}.{m}.{k}": v for k, v in sd[m].items()})
+    return out
+
+
+def _held_pair(pair: dict, batches: list, step, state, what: str) -> dict:
+    """Each of ``batches`` through ``step(trainer, batch)`` (metrics) on
+    ``pair["eager"]`` under ``disable_graphs()`` and on ``pair["graph"]``,
+    deterministic algorithms on; then ``state(trainer)`` of both. Bitwise,
+    or within GRAPH_NONDET where an op has no deterministic version."""
+    with deterministic_ops() as nondet:
+        losses = 0.0
+        for b in batches:
+            with graph_mode("eager"):
+                me = step(pair["eager"], b)
+            mg = step(pair["graph"], b)
+            if set(me) != set(mg):
+                raise RuntimeError(f"{what}: metrics {set(me)} vs {set(mg)}")
+            losses = max(losses, _max_rel(mg, me))
+        states = _max_rel(state(pair["graph"]), state(pair["eager"]))
+    bitwise = losses == 0.0 and states == 0.0
+    if (not bitwise and not nondet) or max(losses, states) > GRAPH_NONDET:
+        raise RuntimeError(f"{what}: graph vs eager losses {losses}, state "
+                           f"{states}; ops without a deterministic version: "
+                           f"{nondet}")
+    return {"steps": len(batches), "loss_max_rel": losses,
+            "state_max_rel": states, "bitwise": bitwise,
+            "nondeterministic_ops": nondet}
+
+
+def _s2_batches(t, cached: bool, rng_seed: int = SEED) -> dict:
+    """One device batch of each bucket: host segments, or (``cached``) the
+    whole waveforms a device-cached step windows."""
+    rng = np.random.default_rng(rng_seed)
+    if cached:
+        def put(b):
+            return t._transfer.transfer(dict(
+                b, audio=t._stage_audio(b["audio"], b["mel"].shape[1])))
+    else:
+        def put(b):
+            return t._transfer.transfer(t._prepare(b, rng))
+    return bucket_batches(t, put, t._max_audio_samples())
+
+
+def _timed_both_ways(step, batches: dict, b512, card: str, phase: str,
+                     iters: int = 5) -> dict:
+    """ms a ``step(batch)`` by bucket in turns (graph, eager, eager,
+    graph), and 3 steps at ``b512`` profiled both ways."""
+    ms = {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with graph_mode(mode):
+            for (tb, fb), b in batches.items():
+                ms.setdefault(mode, {}).setdefault(f"{tb},{fb}", []).append(
+                    step_ms(step, b, iters=iters))
+    prof = {}
+    for mode in ("graph", "eager"):
+        with graph_mode(mode):
+            prof[mode] = _profile_figures(lambda: [step(b512)
+                                                   for _ in range(3)],
+                                          card, f"{phase}_{mode}")
+    return {"ms_per_step_by_bucket": ms, "profile_3_steps_128_512": prof}
+
+
+def train_stage2_graphs_phase(out_dir: str, card: str, stage1_dir,
+                              packed: dict) -> dict:
+    """The stage-2 step, validation's forward and stage 1 under
+    accumulation as CUDA graphs at the flagship's widths, each warm-started
+    from the stage-1 checkpoint:
+
+    - held against ``disable_graphs()`` eager (``_held_pair``): the recipe
+      (STAGE2_TRAINING: bf16, 32768-sample segments, spectral norm, EMA)
+      fused on host batches, ``S2_GRAPH_STEPS`` steps a bucket; the packed
+      lowering (FLAGSHIP_TRAINING) with ``alternate_gd`` and k = 2, eight
+      steps at (128, 512) (a graph per net and branch, each replayed);
+      the native lowering on
+      the device cache; validation's forward of the recipe's EMA after
+      its steps and after the state before them is loaded back; stage 1 in
+      f32 at k = 2 (four micro-steps a bucket) and its eval step;
+    - timed, graph against eager (``_timed_both_ways``): ms a GAN step of
+      the recipe by bucket, 3 steps at (128, 512) profiled (wall, busy
+      share, device operations), beside the packed and native figures of
+      ``train_stage2_packed``; peak memory; ms of validation's forward at
+      (128, 512); stage 1 in bf16 at k = 2, ms a micro-step and an eval
+      step by bucket."""
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING,
+                                              STAGE2_TRAINING)
+
+    t_phase = time.perf_counter()
+    warm = {"training.init_generator_from": str(stage1_dir),
+            "training.validate_quality": False}
+    out = {"phase": "train_stage2_graphs", "card": card,
+           "tol": {"nondeterministic_rel": GRAPH_NONDET}}
+
+    def s2_step(t, b):
+        return t.train_step(dict(b))
+
+    def pair(training, name, **extra):
+        return {mode: Stage2Trainer(train_config(
+            FLAGSHIP_MODEL, training, f"{out_dir}/{name}_{mode}",
+            overrides=STAGE2_OVERRIDES, **warm, **extra), device="cuda")
+            for mode in ("eager", "graph")}
+
+    # ---- held: the recipe, fused, host batches; then validation's forward
+    held = {}
+    tr = pair(STAGE2_TRAINING, "recipe")
+    before = tr["graph"]._host_state()  # a host copy
+    bb = _s2_batches(tr["eager"], cached=False)
+    held["recipe_fused"] = _held_pair(
+        tr, [b for b in bb.values() for _ in range(S2_GRAPH_STEPS)],
+        s2_step, _s2_state, "recipe fused step")
+    held["recipe_fused"]["graphs"] = tr["graph"]._graphs.stats()
+    b512 = bb[tuple(tr["graph"].buckets[1])]
+
+    def val_step(t, b):
+        mel_loss, spec_loss, mel, audio = t._val_fwd(b, t._eval_params())
+        return {"mel_loss": mel_loss, "spectral_loss": spec_loss,
+                "mel": mel, "audio": audio}
+
+    held["validation_after_steps"] = _held_pair(
+        tr, list(bb.values()), val_step, lambda t: {}, "validation forward")
+    g = tr["graph"]
+    g._load_state(before, before.get("generator_ema"))
+    tr["eager"]._load_state(before, before.get("generator_ema"))
+    held["validation_after_restore"] = _held_pair(
+        tr, list(bb.values()), val_step, lambda t: {},
+        "validation forward after a restore")
+    restored = val_step(g, b512)["audio"]
+    with graph_mode("eager"):
+        again = val_step(g, b512)["audio"]
+    if not torch.equal(restored, again):
+        raise RuntimeError("validation after a restore is not the restored "
+                           "weights' audio")
+    del tr, g, bb, b512, before
+    gc.collect()  # the trainers' graphs and pools
+    torch.cuda.empty_cache()
+
+    # ---- held: packed, alternating, k = 2; native on the device cache
+    tr = pair(FLAGSHIP_TRAINING, "packed_alt_k2",
+              **{"training.disc_lowering": "packed",
+                 "training.alternate_gd": True,
+                 "training.gradient_accumulation_steps": 2})
+    bb = _s2_batches(tr["eager"], cached=False)
+    held["packed_alternate_k2"] = _held_pair(  # 4 graphs, each replayed
+        tr, [bb[tuple(tr["eager"].buckets[1])]] * 8, s2_step, _s2_state,
+        "packed alternate_gd k=2")
+    held["packed_alternate_k2"]["graphs"] = tr["graph"]._graphs.stats()
+    del tr, bb
+    tr = pair(FLAGSHIP_TRAINING, "native_cached",
+              **{"training.disc_lowering": "native",
+                 "training.device_data_cache": True})
+    bb = _s2_batches(tr["eager"], cached=True)
+    held["native_device_cached"] = _held_pair(
+        tr, [b for b in bb.values() for _ in range(S2_GRAPH_STEPS)],
+        s2_step, _s2_state, "native device-cached step")
+    del tr, bb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- held: stage 1 at k = 2, f32, and its eval step
+    s1 = {mode: Stage1Trainer(train_config(
+        FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{out_dir}/s1_{mode}",
+        overrides=GRAPH_TRAIN,
+        **{"training.gradient_accumulation_steps": 2}), device="cuda")
+        for mode in ("eager", "graph")}
+    init = s1["graph"]._host_state_copy()
+    sb = bucket_batches(s1["eager"], s1["eager"]._put)
+
+    def s1_step(t, b):
+        losses = t._guarded_step(b)
+        t.step += 1
+        return losses
+
+    held["stage1_k2"] = _held_pair(
+        s1, [b for b in sb.values() for _ in range(4)], s1_step,
+        lambda t: dict(t.model.state_dict()), "stage-1 k=2 step")
+    held["stage1_k2"]["graphs"] = s1["graph"]._graphs.stats()
+    held["stage1_eval"] = _held_pair(
+        s1, list(sb.values()), lambda t, b: t._eval_step(b), lambda t: {},
+        "stage-1 eval step")
+    for t in s1.values():
+        t._restore(init, 0)
+    held["stage1_eval_after_restore"] = _held_pair(
+        s1, list(sb.values()), lambda t, b: t._eval_step(b), lambda t: {},
+        "stage-1 eval step after a restore")
+    out["held"] = held
+    del s1, sb, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- timed: the recipe; packed and native from train_stage2_packed
+    torch.cuda.reset_peak_memory_stats()
+    t = Stage2Trainer(train_config(
+        FLAGSHIP_MODEL, STAGE2_TRAINING, f"{out_dir}/recipe_timed",
+        overrides=STAGE2_OVERRIDES, **warm), device="cuda")
+    bb = _s2_batches(t, cached=False)
+    b512 = bb[tuple(t.buckets[1])]
+    first = []  # a bucket's first call (eager, then the capture), replays
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step(b512)
+        torch.cuda.synchronize()
+        first.append((time.perf_counter() - t0) * 1e3)
+    timed = {"recipe_spectral_norm": _timed_both_ways(
+        t.train_step, bb, b512, card, "train_stage2_graphs_recipe")}
+    timed["recipe_spectral_norm"]["first_calls_128_512_ms"] = first
+    timed["recipe_spectral_norm"]["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    timed["recipe_spectral_norm"]["graphs"] = t._graphs.stats()
+    params = t._eval_params()
+    val = {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with graph_mode(mode):
+            val.setdefault(mode, []).append(step_ms(
+                lambda b: t._val_fwd(b, params), b512, iters=5))
+    timed["validation_forward_128_512_ms"] = val
+    for low in ("packed", "native"):
+        timed[f"{low}_bf16"] = {
+            k: packed[low][k] for k in ("ms_per_step_by_bucket",
+                                        "profile_3_steps_128_512",
+                                        "max_memory_allocated_gb", "graphs")}
+    t.close()
+    del t, bb, b512, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- timed: stage 1 in bf16 at k = 2, micro-steps and eval steps
+    s1 = Stage1Trainer(train_config(
+        FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{out_dir}/s1_timed",
+        **{"training.gradient_accumulation_steps": 2}), device="cuda")
+    sb = bucket_batches(s1, s1._put)
+    s1_ms = {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with graph_mode(mode):
+            for (tb, fb), b in sb.items():
+                s1_ms.setdefault("micro_step", {}).setdefault(
+                    mode, {}).setdefault(f"{tb},{fb}", []).append(
+                    step_ms(s1._train_step, b))
+                s1_ms.setdefault("eval_step", {}).setdefault(
+                    mode, {}).setdefault(f"{tb},{fb}", []).append(
+                    step_ms(s1._eval_step, b))
+    s1_ms["graphs"] = s1._graphs.stats()
+    timed["stage1_bf16_k2"] = s1_ms
+    s1.close()
+    del s1, sb
+    torch.cuda.empty_cache()
+    out["timed"] = timed
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
     return out
 
 
@@ -3303,9 +3670,13 @@ def main() -> int:
         # ---- 7b. the phase-packed discriminator: the lowering alone, in
         # the stage-2 trainer, then the pipeline smoke suite
         disc_lowering_phase(card)
-        paths["train_stage2_packed"] = train_stage2_packed_phase(
-            f"{tdir}/stage2_packed", card, stage1_dir, buckets,
-            counters)["launches"]
+        packed = train_stage2_packed_phase(
+            f"{tdir}/stage2_packed", card, stage1_dir, buckets, counters)
+        paths["train_stage2_packed"] = packed["launches"]
+        # ---- 7c. the training graphs against eager, with their figures
+        train_stage2_graphs_phase(f"{tdir}/stage2_graphs", card, stage1_dir,
+                                  packed)
+        del packed
         paths["pipeline_smoke"] = pipeline_smoke_phase(card,
                                                        counters)["launches"]
 

@@ -26,15 +26,20 @@ arithmetic:
   goes on; an OOM inside the optimizer update (which may have updated some
   tensors) restores the last host snapshot and rewinds the step. Non-finite
   losses rewind to the same snapshot, a bounded number of times;
-- on CUDA without a mesh and with k = 1 the step is one CUDA graph per
-  data bucket, the counterpart of JAX's ``jax.jit(step_fn)``
-  (``utils/graphs.py``): forward, backward, one global norm, the clip and
-  a capturable AdamW whose lr is a device tensor, with the dropout
-  generator registered with the graph and reseeded by the host before each
-  replay, so a replay draws eager's masks. The batch is copied into the
-  graph's inputs. A bucket's first step runs eagerly and captures; an OOM
-  there restores the last snapshot. Loading optimizer state drops the
-  graphs. Validation, accumulation (k > 1) and the mesh run eagerly.
+- on CUDA without a mesh the step is one CUDA graph per data bucket, the
+  counterpart of JAX's ``jax.jit(step_fn)`` (``utils/graphs.py``):
+  forward, backward, one global norm, the clip and a capturable AdamW
+  whose lr is a device tensor, with the dropout generator registered with
+  the graph and reseeded by the host before each replay, so a replay draws
+  eager's masks. Under accumulation (k > 1) a bucket has two graphs, one
+  that accumulates and one that accumulates and applies, picked by the
+  host, with the running mean's divisor a device tensor the host writes.
+  The batch is copied into the graph's inputs. A bucket's first step runs
+  eagerly and captures; an OOM there restores the last snapshot. Loading
+  optimizer state drops the graphs. The eval step (``_eval_step``, JAX's
+  ``_build_eval_step``) is one graph per bucket too, reading the live
+  weights, which training and restores update in place. The mesh runs
+  eagerly.
 
 The state a checkpoint holds is ``{"params": state_dict, "opt_state":
 Optimizer.state_dict(), "step": int}``; ``utils.checkpoint.load_for_inference``
@@ -54,6 +59,7 @@ sees the same. Without a mesh none of this runs.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
@@ -79,7 +85,7 @@ from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import (MemoryTracker, ThermalMonitor,
                                           resolve_device)
-from m2tts_tpu_torch.utils.graphs import GraphRunner
+from m2tts_tpu_torch.utils.graphs import step_graphs
 from m2tts_tpu_torch.utils.metrics_logger import MetricsLogger
 from m2tts_tpu_torch.utils.profiling import StepProfiler
 from m2tts_tpu_torch.utils.tree import cast_params_bf16, tree_finite
@@ -197,6 +203,13 @@ class Optimizer:
     captured in a CUDA graph; ``set_lr`` writes the schedule's value into
     the lr tensor before each update, outside any graph. Without it (the
     CPU) the lr is a host float, as in every torch optimizer.
+
+    ``update`` is three calls, so that a graph can hold the middle one:
+    ``begin_update`` (host: whether this micro-step applies, the running
+    mean's divisor ``mini_step + 1`` written into a 0-d device tensor, and
+    the lr when it applies), ``device_update`` (device tensors only:
+    accumulate, and apply when told) and ``end_update`` (host: the
+    counts). The branch is the host's; a graph holds one per branch.
     """
 
     def __init__(self, cfg, named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -225,6 +238,10 @@ class Optimizer:
         self.acc: Optional[List[torch.Tensor]] = (
             [torch.zeros_like(p) for p in self.params] if self.k > 1
             else None)
+        #: ``mini_step + 1`` of the micro-step under way, on the device
+        self.divisor: Optional[torch.Tensor] = (
+            torch.ones((), dtype=torch.float32, device=self.params[0].device)
+            if self.k > 1 else None)
 
     def clip(self, grads: Sequence[torch.Tensor],
              norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -278,20 +295,46 @@ class Optimizer:
         Adam moments advance as without it. ``norm``: the global norm of
         ``grads`` where the caller computed it (the clip then takes it; it
         is not the norm of an accumulated mean)."""
+        applies = self.begin_update()
+        self.device_update(grads, applies, scale, norm)
+        self.end_update(applies)
+
+    def begin_update(self) -> bool:
+        """The host half of a micro-step before its device half: whether
+        it applies an update (every k-th), with the divisor and, when it
+        applies, the lr written into their device tensors."""
+        applies = self.acc is None or self.mini_step + 1 == self.k
+        if self.divisor is not None:
+            self.divisor.fill_(self.mini_step + 1)
+        if applies:
+            self.set_lr()
+        return applies
+
+    @torch.no_grad()
+    def device_update(self, grads: Sequence[torch.Tensor], applies: bool,
+                      scale: Optional[torch.Tensor] = None,
+                      norm: Optional[torch.Tensor] = None) -> None:
+        """The device half of a micro-step (a graph may hold it): the
+        running mean ``acc += (g - acc) / divisor`` under accumulation,
+        then, when ``applies``, the update of that mean (or of ``grads``)
+        and the accumulator zeroed."""
         if self.acc is not None:
-            n = self.mini_step
             for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            if n + 1 < self.k:
-                self.mini_step = n + 1
+                a.add_((g - a) / self.divisor)
+            if not applies:
                 return
             grads, norm = self.acc, None
-        self.set_lr()
         self.apply(grads, scale, norm)
-        self.count += 1
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
+
+    def end_update(self, applies: bool) -> None:
+        """The host half after the device half: the counts."""
+        if applies:
+            self.count += 1
             self.mini_step = 0
+        else:
+            self.mini_step += 1
 
     def state_dict(self) -> Dict:
         """optax's state in the port's names: Adam's moments ``mu``/``nu``
@@ -444,12 +487,11 @@ class Stage1Trainer:
         self.param_names = [n for n, _ in self.model.named_parameters()]
         self._params = [p for _, p in self.model.named_parameters()]
         # one CUDA graph per data bucket for the whole step (forward,
-        # backward, clip, AdamW), as JAX jits it; eager on the CPU, on a
-        # mesh and under accumulation
-        single = self.device.type == "cuda" and self.mesh is None
+        # backward, clip, AdamW), as JAX jits it; eager on the CPU and on
+        # a mesh
+        self._graphs = step_graphs(self.device, self.mesh)
         self.optimizer = Optimizer(tcfg, self.model.named_parameters(),
-                                   capturable=single)
-        self._graphs = GraphRunner(self.device) if single else None
+                                   capturable=self._graphs is not None)
         self._graph_loads = self.optimizer.loads
         self._noise = torch.Generator(device=self.device)
         for m in self.model.modules():
@@ -591,37 +633,43 @@ class Stage1Trainer:
         return losses
 
     def _graphed(self) -> bool:
-        """Whether a step is one graph replay: on CUDA without a mesh, with
-        k = 1 (under accumulation ``update`` picks its branch on the host)
-        and outside ``disable_graphs()``."""
-        return (self._graphs is not None and self._graphs.active()
-                and self.optimizer.acc is None)
+        """Whether a step (and an eval step) is one graph replay: on CUDA
+        without a mesh and outside ``disable_graphs()``."""
+        return self._graphs is not None and self._graphs.active()
 
     #: the batch entries a step reads, in the graph's argument order
     _STEP_KEYS = ("phoneme_ids", "text_lengths", "durations", "mel",
                   "mel_lengths")
 
-    def _step_fn(self, *tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The device half of a step (forward, backward, clip, AdamW) on
-        the batch's tensors: what the step graph holds."""
+    def _step_fn(self, applies: bool, *tensors: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """The device half of a micro-step (forward, backward, and the
+        optimizer's device half: accumulate, and clip and AdamW when
+        ``applies``) on the batch's tensors: what a step graph holds."""
         losses, grads = self._grads(dict(zip(self._STEP_KEYS, tensors)))
-        self.optimizer.apply(grads, norm=losses["grad_norm"])
+        self.optimizer.device_update(grads, applies,
+                                     norm=losses["grad_norm"])
         return losses
 
     def _graph_step(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-        """One step as a replay of its bucket's graph: the host seeds the
-        dropout generator and writes the lr, the graph does the rest."""
+        """One micro-step as a replay of its bucket's graph for the
+        optimizer's branch: the host seeds the dropout generator and writes
+        the divisor and the lr, the graph does the rest."""
+        self._drop_stale_graphs()
+        self._noise.manual_seed(self._noise_seed(self.step))
+        applies = self.optimizer.begin_update()
+        losses = self._graphs(("step", applies),
+                              functools.partial(self._step_fn, applies),
+                              *(batch[k] for k in self._STEP_KEYS),
+                              generators=(self._noise,))
+        self.optimizer.end_update(applies)
+        return losses
+
+    def _drop_stale_graphs(self) -> None:
         if self.optimizer.loads != self._graph_loads:
             self._graphs.drop()  # the optimizer's state tensors are new
             self._graph_loads = self.optimizer.loads
-        self._noise.manual_seed(self._noise_seed(self.step))
-        self.optimizer.set_lr()
-        losses = self._graphs(("step",), self._step_fn,
-                              *(batch[k] for k in self._STEP_KEYS),
-                              generators=(self._noise,))
-        self.optimizer.count += 1
-        return losses
 
     def _guarded_step(self, batch: Dict[str, torch.Tensor]
                       ) -> Optional[Dict[str, torch.Tensor]]:
@@ -668,14 +716,22 @@ class Stage1Trainer:
     @torch.no_grad()
     def _eval_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        self.model.eval()
-        try:
-            losses = self._loss_fn(batch)[1]
-        finally:
-            self.model.train()
+        """The eval-mode losses of a batch: a replay of the bucket's eval
+        graph where ``_graphed``, else eager."""
+        if self._graphed():
+            return self._graphs(("eval",), self._eval_fn,
+                                *(batch[k] for k in self._STEP_KEYS))
+        losses = self._eval_fn(*(batch[k] for k in self._STEP_KEYS))
         if self.mesh is not None:
             losses = pmesh.mean_dict_over(losses, self.mesh)
         return losses
+
+    def _eval_fn(self, *tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        try:
+            return self._loss_fn(dict(zip(self._STEP_KEYS, tensors)))[1]
+        finally:
+            self.model.train()
 
     # -- loop --------------------------------------------------------------
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -11,8 +11,9 @@ arithmetic:
   the generator, its real half forward only. Gradients are taken with
   ``torch.autograd.grad`` over one net's parameters, so neither net's
   update touches the other. Both generator forwards draw the same dropout
-  masks: the dropout generator is reseeded from (seed + 3, step, blow-ups)
-  before each;
+  masks: each draws from a generator of its own (``_noise_d``,
+  ``_noise_g``), both seeded with (seed + 3, step, blow-ups) by the host
+  before the step;
 - **bf16** casts each net's f32 weights to bf16 inside the forward
   (``torch.func.functional_call``) and the discriminator's input to bf16;
   logits and features are upcast to f32 before the losses (and nothing is
@@ -20,7 +21,9 @@ arithmetic:
 - both nets use the port's ``Optimizer`` (optax's ``clip_by_global_norm`` +
   ``adamw``, b1 0.8 and b2 0.99 by default, ``MultiSteps`` under
   accumulation). ``g_updates``/``d_updates`` count each net's update calls,
-  as flax's ``TrainState.step`` does, and set the adversarial warmup ramp;
+  as flax's ``TrainState.step`` does, and set the adversarial warmup ramp,
+  a 0-d f32 device tensor the host fills before each step (JAX traces it
+  from ``g_state.step``);
 - **the adaptive guards**: with ``adaptive_d_lr_floor`` the
   discriminator's applied update is scaled by ``clip(d_loss/floor, 0, 1)``
   (Adam's moments advance as without it); with
@@ -41,7 +44,21 @@ arithmetic:
 - **guards**: an out-of-memory error drops the step, restoring the last
   host snapshot when an update had begun; non-finite losses at a log step
   rewind to the snapshot (restored before the raise) at most
-  ``max_loss_blowups`` times; non-finite weights are never checkpointed.
+  ``max_loss_blowups`` times; non-finite weights are never checkpointed;
+- **CUDA graphs** (``utils/graphs.py``), the counterparts of JAX's jitted
+  ``_gd_step``/``_gd_step_cached``, ``_d_step``/``_g_step`` and
+  ``_val_fwd``: on CUDA without a mesh a step is one graph replay per
+  (bucket, mode), the mode being fused or D or G, host or device-cached
+  batch, and under accumulation each optimizer's branch (accumulate, or
+  accumulate and apply). The graph holds the window cut, both losses and
+  gradients, the guarded D update, the G update and the EMA; the host
+  seeds the three generators (registered with the graph), fills the ramp,
+  the lrs and the accumulation divisors, and keeps the counts. A bucket's
+  first step runs eagerly and captures; an OOM there restores the last
+  snapshot; an optimizer state load (restore, resume, a blow-up rewind)
+  drops the graphs. Validation's forward is one graph per bucket with the
+  scored weights as its inputs. On the CPU, on a mesh and inside
+  ``disable_graphs()`` all of it runs eagerly.
 
 A checkpoint holds ``{"generator", "g_opt_state", "discriminator",
 "d_opt_state", "step"}`` and ``generator_ema``; ``load_for_inference`` and
@@ -66,6 +83,7 @@ by rank 0.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import time
@@ -94,6 +112,7 @@ from m2tts_tpu_torch.utils.checkpoint import CheckpointManager
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import (MemoryTracker, ThermalMonitor,
                                           resolve_device)
+from m2tts_tpu_torch.utils.graphs import step_graphs
 from m2tts_tpu_torch.utils.metrics_logger import MetricsLogger
 from m2tts_tpu_torch.utils.profiling import StepProfiler
 from m2tts_tpu_torch.utils.tree import cast_params_bf16, tree_finite
@@ -256,17 +275,28 @@ class Stage2Trainer:
         self.g_params = [p for _, p in self.model.named_parameters()]
         self.d_names = [n for n, _ in self.discriminator.named_parameters()]
         self.d_params = [p for _, p in self.discriminator.named_parameters()]
-        self.g_opt = Optimizer(opt_cfg, self.model.named_parameters())
-        self.d_opt = Optimizer(opt_cfg, self.discriminator.named_parameters())
+        # the step, validation's forward: one CUDA graph per bucket key
+        # (None on the CPU and on a mesh, which run eagerly)
+        self._graphs = step_graphs(self.device, self.mesh)
+        capturable = self._graphs is not None
+        self.g_opt = Optimizer(opt_cfg, self.model.named_parameters(),
+                               capturable=capturable)
+        self.d_opt = Optimizer(opt_cfg, self.discriminator.named_parameters(),
+                               capturable=capturable)
+        self._graph_loads = (self.g_opt.loads, self.d_opt.loads)
         self.g_updates = 0
         self.d_updates = 0
         self.ema: Optional[List[torch.Tensor]] = (
             [p.detach().clone() for p in self.g_params]
             if self.ema_decay > 0 else None)
-        self._noise = torch.Generator(device=self.device)
-        for m in self.model.modules():
-            if isinstance(m, Dropout):
-                m.generator = self._noise
+        # the adversarial warmup ramp of the next G step, filled by the host
+        self._ramp = torch.zeros((), dtype=torch.float32, device=self.device)
+        # dropout of D's fake forward and of G's forward: two generators
+        # seeded alike, so the two draw the same masks
+        self._noise_d = torch.Generator(device=self.device)
+        self._noise_g = torch.Generator(device=self.device)
+        self._dropouts = [m for m in self.model.modules()
+                          if isinstance(m, Dropout)]
         self._offsets = torch.Generator(device=self.device)
         self._transfer = BatchTransfer(self.device, self.transfer_dtype)
 
@@ -436,12 +466,17 @@ class Stage2Trainer:
             return logits
         return logits, [[_f32(f) for f in fs] for fs in feats]
 
-    def _d_loss_and_grads(self, batch: Dict[str, torch.Tensor], seed: int):
+    def _use_noise(self, generator: torch.Generator) -> None:
+        """Point every dropout of the generator at ``generator``."""
+        for m in self._dropouts:
+            m.generator = generator
+
+    def _d_loss_and_grads(self, batch: Dict[str, torch.Tensor]):
         """LSGAN discriminator loss over ``[real; fake]`` in one apply and
         its gradient over the discriminator's parameters. The fake comes
         from a train-mode generator forward with the step's dropout."""
         with torch.no_grad():
-            self._noise.manual_seed(seed)
+            self._use_noise(self._noise_d)
             _, _, fake = self._acoustic_and_segment(
                 self._live(self.g_names, self.g_params), batch)
         B = fake.shape[0]
@@ -459,11 +494,11 @@ class Stage2Trainer:
         return d_loss, grads
 
     def _g_losses(self, g_params: Dict[str, torch.Tensor],
-                  batch: Dict[str, torch.Tensor], seed: int,
+                  batch: Dict[str, torch.Tensor],
                   d_loss: Optional[torch.Tensor] = None):
         """(total, losses) of the generator against the current
         discriminator (its weights detached)."""
-        self._noise.manual_seed(seed)
+        self._use_noise(self._noise_g)
         out, mel_pred, audio_pred = self._acoustic_and_segment(g_params, batch)
         target = batch["audio_seg"]
         sr = self._effective_sample_rate()
@@ -493,9 +528,10 @@ class Stage2Trainer:
         weights = dict(self.weights)
         if self.adv_warmup > 0:
             # the logged losses stay un-ramped; only the total is scheduled
-            ramp = min(max(self.g_updates / self.adv_warmup, 0.0), 1.0)
-            weights["adversarial_weight"] *= ramp
-            weights["feature_matching_weight"] *= ramp
+            weights["adversarial_weight"] = (
+                weights["adversarial_weight"] * self._ramp)
+            weights["feature_matching_weight"] = (
+                weights["feature_matching_weight"] * self._ramp)
         if self.adaptive_adv_floor > 0 and d_loss is not None:
             # a won discriminator (d_loss → 0) feeds saturated-logit
             # gradients to G: scale the adversarial weight (not FM) by how
@@ -508,10 +544,10 @@ class Stage2Trainer:
         losses["total_loss"] = total
         return total, losses
 
-    def _g_loss_and_grads(self, batch: Dict[str, torch.Tensor], seed: int,
+    def _g_loss_and_grads(self, batch: Dict[str, torch.Tensor],
                           d_loss: Optional[torch.Tensor] = None):
         total, losses = self._g_losses(
-            self._live(self.g_names, self.g_params), batch, seed, d_loss)
+            self._live(self.g_names, self.g_params), batch, d_loss)
         grads = torch.autograd.grad(total, self.g_params,
                                     materialize_grads=True)
         losses = {k: v.detach() for k, v in losses.items()}
@@ -521,21 +557,22 @@ class Stage2Trainer:
         return losses, grads
 
     def _d_update(self, grads: Sequence[torch.Tensor],
-                  d_loss: torch.Tensor) -> None:
+                  d_loss: torch.Tensor, applies: bool) -> None:
+        """The device half of D's update (``Optimizer.device_update``)."""
         guard = None
         if self.adaptive_d_lr_floor > 0:
             # a saturated discriminator slows its own update: Adam
             # normalises a gradient's scale away, so the update is scaled
             guard = torch.clamp(d_loss / self.adaptive_d_lr_floor, 0.0, 1.0)
         self._updating = True
-        self.d_opt.update(grads, scale=guard)
-        self.d_updates += 1
+        self.d_opt.device_update(grads, applies, scale=guard)
 
     @torch.no_grad()
-    def _g_update(self, grads: Sequence[torch.Tensor]) -> None:
+    def _g_update(self, grads: Sequence[torch.Tensor],
+                  applies: bool) -> None:
+        """The device half of G's update, then the EMA."""
         self._updating = True
-        self.g_opt.update(grads)
-        self.g_updates += 1
+        self.g_opt.device_update(grads, applies)
         if self.ema is not None:
             torch._foreach_mul_(self.ema, self.ema_decay)
             torch._foreach_add_(self.ema, self.g_params,
@@ -543,11 +580,17 @@ class Stage2Trainer:
 
     def _slice_batch(self, batch: Dict[str, torch.Tensor], step: int
                      ) -> Dict[str, torch.Tensor]:
+        """``_window`` of ``batch`` with step ``step``'s offsets."""
+        self._offsets.manual_seed(self._noise_seed(step, _OFFSETS))
+        return self._window(batch)
+
+    def _window(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
         """A random window per row of the device-resident full waveform
         (at the vocoder's rate, ``upsample`` samples a frame): offsets in
-        [0, max(mel_len - seg_frames, 0)], drawn on the device (over the
-        global batch on a mesh, then this rank's rows)."""
-        self._offsets.manual_seed(self._noise_seed(step, _OFFSETS))
+        [0, max(mel_len - seg_frames, 0)], drawn on the device from
+        ``_offsets`` as the host seeded it (over the global batch on a
+        mesh, then this rank's rows)."""
         mel_len = batch["mel_lengths"]
         max_off = torch.clamp(mel_len - self.seg_frames, min=0)
         index, count = ((0, 1) if self.mesh is None
@@ -569,28 +612,90 @@ class Stage2Trainer:
     # -- steps -------------------------------------------------------------
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One GAN step on a device batch (or a host batch, prepared and
-        copied here). Returns the losses as device scalars; nothing waits
-        for the device."""
+        copied here): the host half (seeds, ramp, the optimizers' branches,
+        lrs and divisors), then the device half (``_step_fn``) as a replay
+        of its graph where ``_graphed``, else eagerly, then the counts.
+        Returns the losses as device scalars; nothing waits for the
+        device."""
         if isinstance(batch.get("mel"), np.ndarray):
             batch = self._transfer.transfer(_rows(
                 batch if "audio_seg" in batch else self._prepare(batch),
                 self.mesh))
-        batch = _upcast(batch)
-        if "audio" in batch:  # device-cached: the window is cut here
-            batch = self._slice_batch(batch, self.step)
+        tensors = {k: v for k, v in batch.items()
+                   if isinstance(v, torch.Tensor)}
         seed = self._noise_seed(self.step, _DROPOUT)
-        metrics: Dict[str, torch.Tensor] = {}
+        self._noise_d.manual_seed(seed)
+        self._noise_g.manual_seed(seed)
+        generators = [self._noise_d, self._noise_g]
+        if "audio" in tensors:  # device-cached: the window is cut inside
+            self._offsets.manual_seed(self._noise_seed(self.step, _OFFSETS))
+            generators.append(self._offsets)
+        # None: that net sits this step out (alternate_gd)
+        d_applies = g_applies = None
         if not self.alternate_gd or self.step % 2 == 0:
-            d_loss, grads = self._d_loss_and_grads(batch, seed)
-            self._d_update(grads, d_loss)
-            metrics["discriminator_loss"] = d_loss
+            d_applies = self.d_opt.begin_update()
         if not self.alternate_gd or self.step % 2 == 1:
-            losses, grads = self._g_loss_and_grads(
-                batch, seed, metrics.get("discriminator_loss"))
-            self._g_update(grads)
-            metrics.update(losses)
+            if self.adv_warmup > 0:
+                self._ramp.fill_(self._ramp_value())
+            g_applies = self.g_opt.begin_update()
+        keys = tuple(tensors)
+        fn = functools.partial(self._step_fn, keys, d_applies, g_applies)
+        if self._graphed():
+            self._drop_stale_graphs()
+            self._updating = True  # a bucket's first call updates eagerly
+            metrics = self._graphs(("step", keys, d_applies, g_applies), fn,
+                                   *tensors.values(), generators=generators)
+        else:
+            metrics = fn(*tensors.values())
+        if d_applies is not None:
+            self.d_opt.end_update(d_applies)
+            self.d_updates += 1
+        if g_applies is not None:
+            self.g_opt.end_update(g_applies)
+            self.g_updates += 1
         self.step += 1
         return metrics
+
+    def _step_fn(self, keys: Tuple[str, ...], d_applies: Optional[bool],
+                 g_applies: Optional[bool], *tensors: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """The device half of a GAN step on the batch's tensors (named by
+        ``keys``): what a step graph holds. The D step (its loss,
+        gradients and guarded update) unless ``d_applies`` is None, then
+        the G step (losses, gradients, update, EMA) unless ``g_applies``
+        is None; each ``*_applies`` tells that optimizer's device half
+        whether to apply."""
+        batch = _upcast(dict(zip(keys, tensors)))
+        if "audio" in batch:  # device-cached: the window is cut here
+            batch = self._window(batch)
+        metrics: Dict[str, torch.Tensor] = {}
+        if d_applies is not None:
+            d_loss, grads = self._d_loss_and_grads(batch)
+            self._d_update(grads, d_loss, d_applies)
+            metrics["discriminator_loss"] = d_loss
+        if g_applies is not None:
+            losses, grads = self._g_loss_and_grads(
+                batch, metrics.get("discriminator_loss"))
+            self._g_update(grads, g_applies)
+            metrics.update(losses)
+        return metrics
+
+    def _ramp_value(self) -> float:
+        """The adversarial warmup ramp of the next G update, as JAX traces
+        it: ``clip(f32(g_state.step) / adv_warmup, 0, 1)`` in f32."""
+        return float(np.clip(np.float32(self.g_updates)
+                             / np.float32(self.adv_warmup), 0.0, 1.0))
+
+    def _graphed(self) -> bool:
+        """Whether a step (and validation's forward) is one graph replay:
+        on CUDA without a mesh and outside ``disable_graphs()``."""
+        return self._graphs is not None and self._graphs.active()
+
+    def _drop_stale_graphs(self) -> None:
+        loads = (self.g_opt.loads, self.d_opt.loads)
+        if loads != self._graph_loads:
+            self._graphs.drop()  # the optimizers' state tensors are new
+            self._graph_loads = loads
 
     def _guarded_step(self, batch) -> Optional[Dict[str, torch.Tensor]]:
         """One step; None after an out-of-memory error, recovered: the step
@@ -755,8 +860,22 @@ class Stage2Trainer:
                  params: Dict[str, torch.Tensor]):
         """Teacher-forced eval-mode forward of the scored weights
         ``params``: (mel loss, MR-STFT loss at its default phase weight,
-        mel, audio)."""
-        batch = _upcast(batch)
+        mel, audio); a replay of the bucket's graph where ``_graphed``,
+        with ``params`` among its inputs (copied in at every call, so it
+        scores the weights of the call)."""
+        tensors = {k: v for k, v in batch.items()
+                   if isinstance(v, torch.Tensor)}
+        keys, names = tuple(tensors), tuple(params)
+        fn = functools.partial(self._val_fn, keys, names)
+        args = (*tensors.values(), *params.values())
+        if self._graphed():
+            return self._graphs(("val", keys, names), fn, *args)
+        return fn(*args)
+
+    def _val_fn(self, keys: Tuple[str, ...], names: Tuple[str, ...],
+                *tensors: torch.Tensor):
+        batch = _upcast(dict(zip(keys, tensors)))
+        params = dict(zip(names, tensors[len(keys):]))
         self._eval_model.eval()
         try:
             _, mel_pred, audio_pred = self._acoustic_and_segment(

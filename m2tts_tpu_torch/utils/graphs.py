@@ -35,7 +35,8 @@ from __future__ import annotations
 import contextlib
 import sys
 import threading
-from typing import Any, Callable, Dict, Hashable, Iterator, Sequence, Tuple
+from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -196,3 +197,11 @@ class GraphRunner:
         current.wait_stream(side)
         self._graphs[full_key] = _Graph(graph, inputs, outputs, launches)
         return result
+
+
+def step_graphs(device, mesh) -> Optional[GraphRunner]:
+    """A trainer's runner for its step and eval graphs: one on CUDA without
+    a mesh, None on the CPU and on a mesh (whose steps stay eager)."""
+    device = torch.device(device)
+    return (GraphRunner(device) if device.type == "cuda" and mesh is None
+            else None)

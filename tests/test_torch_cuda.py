@@ -27,7 +27,14 @@ with the mel (equal, and the replays' counted launches equal eager's),
 the next replay), ``swap_params`` against a fresh Synthesizer, a stream
 chunk by chunk, six f32 stage-1 steps over two buckets under
 deterministic algorithms (rtol 1e-6), and a capture that fails (a host
-sync) raising and leaving the runner usable. They skip without a card.
+sync) raising and leaving the runner usable; and the training graphs
+against eager under deterministic algorithms (bitwise, or ``NONDET_REL``
+where an op warns that it has no deterministic version): the fused GAN
+step in both lowerings, with and without spectral norm, in f32 and bf16,
+the device-cached step, ``alternate_gd``, k = 2, validation's forward
+after steps and after a checkpoint is loaded back, a GAN step whose
+capture fails (a host sync) raising, and stage 1 at k = 2 with its eval
+step after steps and after a restore. They skip without a card.
 This file imports no JAX, so on the card it runs without the test
 harness's conftest (which sets JAX up):
 
@@ -807,3 +814,284 @@ def test_train_step_graph_equals_eager(tmp_path, no_tf32, deterministic):
     for k, v in eager.model.state_dict().items():
         torch.testing.assert_close(graph.model.state_dict()[k], v,
                                    atol=1e-6, rtol=1e-6, msg=k)
+
+
+# -- the training graphs: GAN step, accumulation, validation ---------------
+
+#: where an op of the step has no deterministic CUDA version (a warning of
+#: ``use_deterministic_algorithms(True, warn_only=True)`` names it), graph
+#: and eager are held to this relative bar, each tensor against its largest
+#: value, instead of bitwise
+NONDET_REL = 1e-5
+
+
+@pytest.fixture()
+def nondet_ops(monkeypatch):
+    """Deterministic algorithms where they exist; yields the list of the
+    ops that warned that they have none."""
+    import warnings
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield seen
+        seen.extend(sorted({str(w.message).split(" does not have")[0]
+                            for w in caught
+                            if "deterministic" in str(w.message)}))
+    torch.use_deterministic_algorithms(False)
+
+
+def _held_graph(got, want, nondet, what):
+    """``got`` (graph) against ``want`` (eager): bitwise, or within
+    ``NONDET_REL`` where ``nondet`` names ops without a deterministic
+    version."""
+    if not nondet:
+        assert torch.equal(got, want), f"{what}: not bitwise equal"
+        return
+    scale = want.abs().max().clamp_min(1e-30)
+    rel = float((got - want).abs().max() / scale)
+    assert rel <= NONDET_REL, f"{what}: {rel} (nondeterministic: {nondet})"
+
+
+def _gan_config(tmp_path, **training):
+    cfg = _train_config(tmp_path, audio_segment_len=2048,
+                        stft_phase_weight=0.0, lr_scheduler="constant",
+                        warmup_steps=0, validate_quality=False, **training)
+    cfg.set("data.hop_length", 256)
+    cfg.set("model.text_encoder.dropout", 0.1)
+    cfg.set("data.buckets", GRAPH_TRAIN_BUCKETS)
+    return cfg
+
+
+#: two buckets that the tiny dataset of ``GRAPH_DS_KW`` fills at least four
+#: batches of 8 each
+GRAPH_TRAIN_BUCKETS = [[48, 96], [48, 128]]
+GRAPH_DS_KW = {**DS_KW, "size": 128}
+
+
+def _gan_pair(tmp_path, **training):
+    ds = DummyDataset(**GRAPH_DS_KW, keep_audio=True)
+    tr = {m: Stage2Trainer(_gan_config(tmp_path / m, **training), dataset=ds,
+                           device="cuda") for m in ("eager", "graph")}
+    tr["graph"].model.load_state_dict(tr["eager"].model.state_dict())
+    tr["graph"].discriminator.load_state_dict(
+        tr["eager"].discriminator.state_dict())
+    if tr["graph"].ema is not None:
+        for e, p in zip(tr["graph"].ema, tr["graph"].g_params):
+            e.data.copy_(p)
+    return tr
+
+
+def _gan_batches(t, per_bucket, cached):
+    """``per_bucket`` device batches of each bucket of ``t``, bucket by
+    bucket: host segments, or (``cached``) device-cached whole waveforms."""
+    if cached:
+        source = itertools.islice(t._device_cached_iterator(), 64)
+    else:
+        rng = np.random.default_rng(5)
+        source = (t._transfer.transfer(t._prepare(b, rng)) for b in
+                  make_batches(t.dataset, 8, t.buckets, seed=5,
+                               shuffle=True,
+                               audio_samples=t._max_audio_samples()))
+    out = {}
+    for b in source:
+        got = out.setdefault(b["mel"].shape[1], [])
+        if len(got) < per_bucket:
+            got.append(b)
+    assert len(out) == len(t.buckets), sorted(out)
+    return [b for k in sorted(out) for b in out[k]]
+
+
+def _gan_state(t):
+    out = {f"g.{k}": v for k, v in t.model.state_dict().items()}
+    out.update({f"d.{k}": v for k, v in t.discriminator.state_dict().items()})
+    if t.ema is not None:
+        out.update({f"ema.{n}": e for n, e in zip(t.g_names, t.ema)})
+    for net, opt in (("g", t.g_opt), ("d", t.d_opt)):
+        sd = opt.state_dict()
+        for m in ("mu", "nu"):
+            out.update({f"{net}.{m}.{k}": v for k, v in sd[m].items()})
+    return out
+
+
+def _run_gan(tr, batches, nondet):
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    for b in batches:
+        with disable_graphs():
+            me = tr["eager"].train_step(dict(b))
+        mg = tr["graph"].train_step(dict(b))
+        assert set(me) == set(mg)
+        for k in me:
+            _held_graph(mg[k], me[k], nondet, k)
+    se, sg = _gan_state(tr["eager"]), _gan_state(tr["graph"])
+    for k, v in se.items():
+        _held_graph(sg[k], v, nondet, k)
+
+
+GAN_CASES = {
+    "native_sn_f32": dict(discriminator_spectral_norm=True, bf16=False),
+    "native_sn_bf16": dict(discriminator_spectral_norm=True, bf16=True),
+    "native_f32": dict(disc_lowering="native", bf16=False),
+    "native_bf16": dict(disc_lowering="native", bf16=True),
+    "packed_f32": dict(disc_lowering="packed", bf16=False),
+    "packed_bf16": dict(disc_lowering="packed", bf16=True),
+}
+
+
+@needs_cuda
+@pytest.mark.parametrize("case", list(GAN_CASES))
+def test_gan_step_graph_equals_eager(tmp_path, no_tf32, nondet_ops, case):
+    """Four fused steps over two buckets (host batches), with EMA, both
+    guards, the envelope loss, the warmup ramp over 2 updates and dropout
+    0.1: losses, weights, EMA and Adam moments of the graph run against
+    ``disable_graphs()`` eager."""
+    tr = _gan_pair(tmp_path, ema_decay=0.5, adaptive_adv_dloss_floor=2.0,
+                   adaptive_d_lr_floor=2.0, envelope_loss_weight=4.0,
+                   adversarial_warmup_steps=2, **GAN_CASES[case])
+    g = tr["graph"]
+    assert g._graphs is not None and g.g_opt.capturable
+    _run_gan(tr, _gan_batches(g, 2, cached=False), nondet_ops)
+    assert g._graphs.stats() == {"graphs": 2, "replays": 2}
+    assert g.d_updates == g.g_updates == 4 and g.d_opt.count == 4
+    for t in tr.values():
+        t.close()
+
+
+@needs_cuda
+@pytest.mark.parametrize("kw,graphs", [
+    ({"device_data_cache": True, "ema_decay": 0.5}, 2),
+    ({"alternate_gd": True}, 4),
+    ({"gradient_accumulation_steps": 2, "adaptive_d_lr_floor": 2.0}, 4),
+], ids=["device_cached", "alternate", "accumulate_k2"])
+def test_gan_step_modes_graph_equal_eager(tmp_path, no_tf32, nondet_ops, kw,
+                                          graphs):
+    """The device-cached step (the window cut inside the graph), D and G
+    alternating (a graph each), and accumulation over k = 2 (a graph per
+    optimizer branch), four steps at each of two buckets, graph against
+    eager."""
+    tr = _gan_pair(tmp_path, **kw)
+    g = tr["graph"]
+    batches = _gan_batches(tr["eager"], 4,
+                           kw.get("device_data_cache", False))
+    _run_gan(tr, batches, nondet_ops)
+    assert g._graphs.stats()["graphs"] == graphs
+    for t in tr.values():
+        t.close()
+
+
+@needs_cuda
+def test_gan_validation_graph_reads_new_weights(tmp_path, no_tf32,
+                                                nondet_ops):
+    """Validation's forward as a graph against eager at every point: before
+    training, after two steps (other weights, other audio), after two more,
+    and after the step-2 checkpoint is loaded back (the step-2 audio
+    again, bitwise: the same graph on the same inputs)."""
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    t = Stage2Trainer(_gan_config(tmp_path, ema_decay=0.5, save_every=2,
+                                  max_steps=2),
+                      dataset=DummyDataset(**GRAPH_DS_KW, keep_audio=True),
+                      device="cuda")
+    host = _gan_batches(t, 1, cached=False)[-1]
+
+    def val():
+        got = t._val_fwd(host, t._eval_params())
+        with disable_graphs():
+            want = t._val_fwd(host, t._eval_params())
+        for i, (a, b) in enumerate(zip(got, want)):
+            _held_graph(a, b, nondet_ops, f"val output {i}")
+        return got
+
+    v0 = val()
+    t.train()  # steps 1-2, the checkpoint at 2
+    v2 = val()
+    t.max_steps = 4
+    t.train()
+    v4 = val()
+    assert not torch.equal(v0[3], v2[3]) and not torch.equal(v2[3], v4[3])
+    state, _, step = t.ckpt.restore(2)
+    t._load_state(state, state["generator_ema"])
+    assert step == 2
+    assert torch.equal(val()[3], v2[3])
+    assert t._graphs.stats()["graphs"] >= 2
+    t.close()
+
+
+@needs_cuda
+def test_gan_step_failed_capture_raises(tmp_path):
+    """A host sync inside the step raises at capture on CUDA; nothing falls
+    back to eager."""
+    t = Stage2Trainer(_gan_config(tmp_path),
+                      dataset=DummyDataset(**GRAPH_DS_KW, keep_audio=True),
+                      device="cuda")
+    real = t._d_update
+
+    def syncing(grads, d_loss, applies):
+        float(d_loss.item())
+        return real(grads, d_loss, applies)
+
+    t._d_update = syncing
+    with pytest.raises(RuntimeError):
+        t.train_step(_gan_batches(t, 1, cached=False)[0])
+    assert len(t._graphs) == 0
+    t.close()
+
+
+@needs_cuda
+def test_stage1_accumulation_and_eval_graphs_equal_eager(tmp_path, no_tf32,
+                                                         deterministic):
+    """Stage 1 at k = 2 (two graphs a bucket: accumulate, accumulate and
+    apply), four micro-steps at each of two buckets, and its eval step after the
+    steps and after a restore of the initial state, graph against
+    eager: bitwise."""
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    ds = DummyDataset(**GRAPH_DS_KW)
+    tr = {}
+    for mode in ("eager", "graph"):
+        cfg = _train_config(tmp_path / mode, gradient_accumulation_steps=2)
+        cfg.set("model.text_encoder.dropout", 0.1)
+        cfg.set("data.buckets", GRAPH_TRAIN_BUCKETS)
+        tr[mode] = Stage1Trainer(cfg, dataset=ds, device="cuda")
+    tr["graph"].model.load_state_dict(tr["eager"].model.state_dict())
+    init = tr["graph"]._host_state_copy()
+    by_bucket = {}
+    for b in make_batches(ds, 8, tr["eager"].buckets, seed=5):
+        got = by_bucket.setdefault(b["mel"].shape[1], [])
+        if len(got) < 4:
+            got.append(b)
+    assert len(by_bucket) == 2, sorted(by_bucket)
+    batches = [b for k in sorted(by_bucket) for b in by_bucket[k]]
+    for b in batches:
+        with disable_graphs():
+            le = tr["eager"]._guarded_step(tr["eager"]._put(b))
+        lg = tr["graph"]._guarded_step(tr["graph"]._put(b))
+        for t in tr.values():
+            t.step += 1
+        for k in le:
+            assert torch.equal(lg[k], le[k]), k
+    for k, v in tr["eager"].model.state_dict().items():
+        assert torch.equal(tr["graph"].model.state_dict()[k], v), k
+    g = tr["graph"]
+    assert g.optimizer.count == 4 and g._graphs.stats()["graphs"] == 4
+
+    def evals():
+        out = []
+        for b in batches[::4]:
+            got = g._eval_step(g._put(b))
+            with disable_graphs():
+                want = g._eval_step(g._put(b))
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+            out.append(got["total_loss"])
+        return out
+
+    trained = evals()
+    g._restore(init, 0)
+    restored = evals()
+    assert all(not torch.equal(a, b) for a, b in zip(trained, restored))
+    for t in tr.values():
+        t.close()

@@ -1,8 +1,9 @@
 """The PyTorch port's loader of the C++ mel frontend
 (``frontend/native.py``), which builds ``native/mel_frontend.cpp`` into
 ``build/native/``: its mel against the port's NumPy mel and against the
-JAX package's native mel (atol 2e-5, the bar of
-``tests/test_native_frontend.py``); ``compute_mel_batch`` equal to one
+JAX package's NumPy mel, ``compute_mel_spectrogram`` (atol 2e-5, the bar
+at which ``tests/test_native_frontend.py`` holds the JAX package's own
+native mel to that NumPy mel); ``compute_mel_batch`` equal to one
 call at a time; ``AudioProcessor(use_native=...)`` with the JAX
 semantics ('auto' falls back to NumPy when the build fails, True raises,
 False never tries). Needs ``g++``."""
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from m2tts_tpu.frontend import native as jnative
+from m2tts_tpu.frontend import audio as jaudio
 from m2tts_tpu_torch.frontend import audio as taudio
 from m2tts_tpu_torch.frontend import native
 
@@ -49,8 +50,8 @@ def test_mel_matches_numpy_and_jax(n_samples, kw):
     ref = ap.compute_mel(audio)
     assert got.shape == ref.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
-    np.testing.assert_allclose(got, jnative.compute_mel_native(audio, **kw),
-                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(
+        got, jaudio.compute_mel_spectrogram(audio, **kw), rtol=0, atol=ATOL)
 
 
 def test_processor_takes_the_native_path():
