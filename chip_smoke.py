@@ -126,6 +126,16 @@ with ``spawn`` (they import the port and load the kernels built above):
   512 sharded over 'data' in both dtypes (frames equal, PCM within 1 LSB)
   with each rank's kernel launches, and ``dryrun_multichip(2)``.
 
+Then the data-backed path (``corpus_drive``): a 64-utterance v3 corpus
+built by ``data.download_data`` (its seconds), its STOI floors at n = 16
+held to ``artifacts/evidence_r05/corpus_floors.json`` (1e-4), the
+``TTSDataset`` ingest's seconds, 300 flagship stage-1 steps (bf16, device
+cache) on that ``TTSDataset`` (its validation loss must fall), 40
+warm-started stage-2 steps of the recipe with one quality validation
+(utt_stoi, utt_lsd), and ``evaluation.evaluate --audio-metrics`` with two
+``-t`` texts on stage 2's ``best`` and earliest checkpoints (the texts run
+``vocoder_tc.cu``, counted).
+
 One JSON line per phase; the line before the last lists the kernels (with
 the launches of every path and the paths that made them), the last is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
@@ -1262,16 +1272,17 @@ def _read_metrics(log_dir: str):
         return list(csv.DictReader(f))
 
 
-def train_run(cfg, card: str) -> dict:
-    """One training run of ``cfg`` on the card: validation before and
-    after, the run's wall time and peak memory, the logged losses; the
-    trainer, its final weights and the weights it pinned as best."""
-    from m2tts_tpu_torch.data.dataset import DummyDataset
+def train_run(cfg, card: str, dataset: str = "DummyDataset") -> dict:
+    """One training run of ``cfg`` on the card, on a dataset of class
+    ``dataset`` (the data-free ``DummyDataset`` unless the config names a
+    corpus): validation before and after, the run's wall time and peak
+    memory, the logged losses; the trainer, its final weights and the
+    weights it pinned as best."""
     from m2tts_tpu_torch.training.trainer import Stage1Trainer
 
     trainer = Stage1Trainer(cfg, device="cuda")
-    if not isinstance(trainer.dataset, DummyDataset):
-        raise RuntimeError(f"expected the data-free DummyDataset, got "
+    if type(trainer.dataset).__name__ != dataset:
+        raise RuntimeError(f"expected a {dataset}, got "
                            f"{type(trainer.dataset).__name__}")
     best = {}
     pin = trainer.save_best_checkpoint
@@ -1527,18 +1538,18 @@ def _is_loss(key: str) -> bool:
     return key.endswith("_loss") or key == "adv_guard"
 
 
-def stage2_run(cfg, card: str) -> dict:
-    """One stage-2 run of ``cfg`` on the card, warm-started from the
-    stage-1 checkpoint it names: the run's wall time and peak memory, every
-    logged loss, the validation's quality metrics; the trainer, its final
-    EMA weights and the EMA it pinned as best."""
-    from m2tts_tpu_torch.data.dataset import DummyDataset
+def stage2_run(cfg, card: str, dataset: str = "DummyDataset") -> dict:
+    """One stage-2 run of ``cfg`` on the card, on a dataset of class
+    ``dataset``, warm-started from the stage-1 checkpoint it names: the
+    run's wall time and peak memory, every logged loss, the validation's
+    quality metrics; the trainer, its final EMA weights and the EMA it
+    pinned as best."""
     from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
     from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 
     trainer = Stage2Trainer(cfg, device="cuda")
-    if not isinstance(trainer.dataset, DummyDataset):
-        raise RuntimeError(f"expected the data-free DummyDataset, got "
+    if type(trainer.dataset).__name__ != dataset:
+        raise RuntimeError(f"expected a {dataset}, got "
                            f"{type(trainer.dataset).__name__}")
     init_from = cfg.get("training.init_generator_from")
     stage1, _, stage1_step = load_for_inference(init_from)
@@ -3338,6 +3349,121 @@ def multi_device_phase(out_dir: str, scale: float, card: str) -> dict:
     return out
 
 
+# the data-backed path: a v3 corpus built by the port, its STOI floors held
+# to the repo's round-5 measurement (the first 16 utterances of every v3
+# corpus are the same: one default_rng(42) stream), then stage 1 and a
+# warm-started stage 2 trained on it (CUDA graph replays), and both stage-2
+# checkpoints evaluated with audio metrics and served through the kernel
+CORPUS_N = 64
+CORPUS_FLOOR_N = 16
+CORPUS_FLOORS_REF = "artifacts/evidence_r05/corpus_floors.json"
+CORPUS_FLOORS_TOL = 1e-4
+CORPUS_TRAIN = {"training.max_steps": 300, "training.log_every": 50,
+                "training.validate_every": 100, "training.save_every": 1000,
+                "training.warmup_steps": 50, "training.learning_rate": 5e-4,
+                "training.device_data_cache": True}
+CORPUS_STAGE2 = {"training.max_steps": 40, "training.log_every": 10,
+                 "training.validate_every": 40, "training.save_every": 20,
+                 "training.warmup_steps": 10,
+                 "training.device_data_cache": True}
+
+
+def corpus_drive_phase(out_dir: str, card: str, counters: Counters) -> dict:
+    """Build a 64-utterance v3 corpus with ``data.download_data``, hold its
+    floors (``evaluation.corpus_floors``, n = 16) to the round-5 JSON, then
+    train the flagship stage 1 (bf16, device cache) on ``TTSDataset`` (its
+    validation loss must fall), warm-start stage 2 on the recipe with one
+    quality validation, and run ``evaluation.evaluate --audio-metrics`` on
+    stage 2's ``best`` and earliest checkpoints with two ``-t`` texts (bf16
+    on ``vocoder_tc.cu``)."""
+    from pathlib import Path
+
+    from m2tts_tpu_torch.data.download_data import build_synthetic_corpus
+    from m2tts_tpu_torch.evaluation import corpus_floors
+    from m2tts_tpu_torch.evaluation import evaluate as cli
+    from m2tts_tpu_torch.training.trainer import build_dataset
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING,
+                                              STAGE2_TRAINING)
+
+    t_phase = time.perf_counter()
+    counters.zero()
+    t0 = time.perf_counter()
+    corpus = str(build_synthetic_corpus(Path(out_dir) / "data", CORPUS_N,
+                                        profile="v3"))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    floors = json.loads(run_cli(corpus_floors.main, [
+        "--data-dir", corpus, "--n", str(CORPUS_FLOOR_N), "--profile",
+        "v3"]).strip().splitlines()[-1])
+    floors_s = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CORPUS_FLOORS_REF)) as f:
+        ref = json.load(f)
+    floors_err = {k: abs(floors[k] - ref[k]) for k in floors
+                  if k in ref and k not in ("corpus", "n_utterances")}
+    if len(floors_err) != 5 or max(floors_err.values()) > CORPUS_FLOORS_TOL:
+        raise RuntimeError(f"corpus floors {floors} against {ref}")
+
+    cfg1 = train_config(FLAGSHIP_MODEL, FLAGSHIP_TRAINING,
+                        f"{out_dir}/stage1", CORPUS_TRAIN,
+                        **{"data.data_dir": corpus})
+    t0 = time.perf_counter()
+    ingest = len(build_dataset(cfg1.get("data")))
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ingest_audio = len(build_dataset(cfg1.get("data"), keep_audio=True))
+    ingest_audio_s = time.perf_counter() - t0
+    run1 = train_run(cfg1, card, dataset="TTSDataset")
+    if len(run1["trainer"].dataset) != CORPUS_N or ingest != CORPUS_N \
+            or ingest_audio != CORPUS_N:
+        raise RuntimeError(f"TTSDataset of {len(run1['trainer'].dataset)} "
+                           f"samples (ingest {ingest}, {ingest_audio} with "
+                           f"audio), expected {CORPUS_N}")
+    stage1_dir, stage1_report = run1["trainer"].ckpt.directory, run1["report"]
+    run1["trainer"].close()
+
+    cfg2 = train_config(FLAGSHIP_MODEL, STAGE2_TRAINING, f"{out_dir}/stage2",
+                        CORPUS_STAGE2,
+                        **{"data.data_dir": corpus,
+                           "training.init_generator_from": str(stage1_dir)})
+    run2 = stage2_run(cfg2, card, dataset="TTSDataset")
+    stage2_dir, stage2_report = run2["trainer"].ckpt.directory, run2["report"]
+    early = min(run2["trainer"].ckpt.all_steps())
+    run2["trainer"].close()
+    del run1, run2
+    torch.cuda.empty_cache()
+
+    evals = {}
+    for step in ("best", str(early)):
+        t0 = time.perf_counter()
+        report = json.loads(run_cli(cli.main, [
+            "--checkpoint", str(stage2_dir), "--step", step, "--data-dir",
+            corpus, "--audio-metrics", "--json", "--num-samples", "16",
+            "-t", EVAL_TEXTS[0], "-t", EVAL_TEXTS[5]]).strip()
+            .splitlines()[-1])
+        ds = report.get("dataset", {})
+        if not {"audio_stoi", "audio_log_spectral_distance"} <= set(ds) \
+                or not all(np.isfinite(v) for v in ds.values()) \
+                or len(report.get("texts", [])) != 2:
+            raise RuntimeError(f"evaluate --step {step}: {report}")
+        evals[step] = {**ds, "estimated_mos_mean":
+                       report["estimated_mos_mean"],
+                       "seconds": time.perf_counter() - t0}
+    launches = counters.read()
+    if launches["fused_vocoder_tc"] < 1:
+        raise RuntimeError(f"evaluate -t skipped the kernel: {launches}")
+    out = {"phase": "corpus_drive", "card": card, "utterances": CORPUS_N,
+           "corpus_build_s": build_s, "floors": floors,
+           "floors_abs_err_vs_round5": floors_err, "floors_s": floors_s,
+           "ingest_s": ingest_s, "ingest_with_audio_s": ingest_audio_s,
+           "stage1": stage1_report, "stage2": stage2_report,
+           "eval_early_step": early, "evaluate": evals,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3698,7 +3824,12 @@ def main() -> int:
         paths["multi_device"] = multi_device_phase(tdir, scale,
                                                    card)["launches"]
 
-    # ---- 10. kernels line, then the result
+        # ---- 10. the data-backed path: a corpus built by the port, its
+        # floors, both stages trained on it, its checkpoints evaluated
+        paths["corpus_drive"] = corpus_drive_phase(
+            f"{tdir}/corpus_drive", card, counters)["launches"]
+
+    # ---- 11. kernels line, then the result
     def launched(name):
         return {"launches": sum(c[name] for c in paths.values()),
                 "paths": [p for p, c in paths.items() if c[name]],

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import logging
 import pickle
+import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -188,9 +189,11 @@ class TTSDataset:
         self.keep_audio = bool(keep_audio)
         self.cache_dir = Path(cache_dir) if cache_dir else (
             self.data_dir / "cache")
+        t0 = time.perf_counter()
         self.samples = self._load_samples()
-        logger.info("TTSDataset: %d samples from %s", len(self.samples),
-                    self.data_dir)
+        logger.info("TTSDataset: %d samples from %s in %.2f s",
+                    len(self.samples), self.data_dir,
+                    time.perf_counter() - t0)
 
     # -- ingest ---------------------------------------------------------------
     def _cache_file(self) -> Path:

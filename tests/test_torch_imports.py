@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: importing every module of
 ``m2tts_tpu_torch`` and everything ``chip_smoke.py`` imports loads no JAX,
-no flax, no module of the JAX package and not ``tools/orbax_to_torch.py``
-(the converter imports both packages); the entry points, the CLIs and the
-smoke suite among them, default to CUDA and raise without it;
-``chip_smoke.py`` fails without a CUDA device and without the rest of the
-repo."""
+no flax, no module of the JAX package, nothing of ``scripts`` (the JAX
+side's scripts import the JAX package) and not ``tools/orbax_to_torch.py``
+(the converter imports both packages); the quality drive starts only the
+port's entry points; the entry points, the CLIs and the smoke suite among
+them, default to CUDA and raise without it; ``chip_smoke.py`` fails without
+a CUDA device and without the rest of the repo."""
 
 import ast
 import json
@@ -31,7 +32,8 @@ from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, Config
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "m2tts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "m2tts_tpu",
+             "scripts")
 
 _CHILD = r"""
 import ast, json, pkgutil, importlib, sys
@@ -77,7 +79,8 @@ def test_no_jax_or_reference_package_imported():
                  "evaluation.metrics", "serving.export",
                  "serving.export_model", "serving.synthesize",
                  "evaluation.evaluate", "frontend.native", "utils.device",
-                 "ops.grouped_conv", "smoke"):
+                 "ops.grouped_conv", "smoke", "data.download_data",
+                 "evaluation.corpus_floors", "evidence"):
         assert f"m2tts_tpu_torch.{name}" in report["imported"]
     assert "m2tts_tpu_torch.serving" in report["smoke"]
     bad = [m for m in report["modules"] if _forbidden(m)]
@@ -89,8 +92,31 @@ def test_no_jax_or_reference_package_imported():
 
 def test_forbidden_matches_whole_names():
     assert _forbidden("m2tts_tpu") and _forbidden("m2tts_tpu.models")
+    assert _forbidden("scripts") and _forbidden("scripts.download_data")
     assert not _forbidden("m2tts_tpu_torch")
     assert not _forbidden("m2tts_tpu_torch.ops.cuda")
+
+
+def test_quality_drive_runs_only_the_port(tmp_path):
+    """Every command of ``m2tts_tpu_torch.evidence`` is ``python -m`` of a
+    module of the port; none names a file of ``scripts/``."""
+    import argparse
+
+    from m2tts_tpu_torch import evidence
+
+    args = argparse.Namespace(
+        out=str(tmp_path / "out"), artifacts=str(tmp_path / "art"),
+        data_dir=str(tmp_path / "data"), n=8, device="cpu", resume=True,
+        stage1_config="configs/flagship_tpu.yaml",
+        stage2_config="configs/stage2_quality.yaml", stage1_steps=3,
+        stage2_steps=2, overrides=["training.seed=1"])
+    cmds = [i["cmd"] for i in evidence.plan(args, 1) if "cmd" in i]
+    assert len(cmds) == 6
+    for cmd in cmds:
+        assert cmd[:2] == [sys.executable, "-m"]
+        assert cmd[2].startswith("m2tts_tpu_torch.") and not _forbidden(cmd[2])
+        assert not any("scripts" in Path(a).parts or a.endswith((".py", ".sh"))
+                       for a in cmd[3:]), cmd
 
 
 def test_entry_points_default_to_cuda():
