@@ -24,15 +24,19 @@ just before it and read just after:
   bucket in bf16 and f32, int16 and μ-law with the mel, at two duration
   scales and two text sets, and a same-bucket ``synthesize_stream`` of
   three batches; one stream a dtype and a ``StreamBatcher`` of 4, chunk
-  by chunk; ``swap_params`` against a fresh Synthesizer (and back); 8 f32
-  stage-1 steps at each bucket. Figures of both ways: audio-s/s and busy
+  by chunk; ``swap_params`` against a fresh Synthesizer (and back),
+  capturing no graph, and two sample validations on two weight sets, the
+  second capturing none (0 LSB from a fresh validator); 8 f32 stage-1
+  steps at each bucket. Figures of both ways: audio-s/s and busy
   share at 64 × 512, first chunk and ms a chunk, bf16 ms a step and busy
   share, and ``warmup(full=True)``'s capture seconds and pool memory;
 - ``streaming``: ``StreamingSynthesizer`` (64-frame chunks, 4-frame halo)
   in f32 (``vocoder_tc32.cu``) and bf16 (``vocoder_tc.cu``), each stream
   held against its mel vocoded whole by the kernel and against the plain
   version's stream; a 64-frame mel through the short path (the f32 kernel
-  in both); first-chunk latency, per-chunk device time, real-time factor;
+  in both), then three more lengths twice each, one graph a length,
+  bitwise eager; first-chunk latency, per-chunk device time, real-time
+  factor;
 - ``stream_batcher``: eight concurrent streams through a ``StreamBatcher``,
   each equal to its solo stream, with fewer chunk calls than chunks;
 - ``dynamic_batcher``: sixteen concurrent ``submit`` calls, fewer batches
@@ -113,13 +117,16 @@ Then the phase-packed discriminator (``models/discriminator.py``'s
 Then the mesh paths (``multi_device``), each world of processes spawned
 with ``spawn`` (they import the port and load the kernels built above):
 
-- an NCCL world of one rank: three flagship stage-1 steps (f32, TF32 off)
-  on its (1, 1) mesh against the same steps without a mesh (in a new
-  process too; losses relative 1e-5, weights lr/10, beside the same steps
-  run twice without a mesh), and the ``auto`` Synthesizer on
-  the mesh (eight texts, then batch 64 × the 512 bucket) in bf16 and f32
-  against ``mesh=None`` at 0 LSB; ms a step and ms a batch with and
-  without the mesh;
+- an NCCL world of one rank, whose (1, 1) mesh runs graphs: the flagship
+  stage-1 step (f32, TF32 off) twice at each bucket and the packed GAN
+  step (``FLAGSHIP_TRAINING``) twice at (128, 512), each as graph replays
+  held against ``disable_graphs()`` eager under deterministic algorithms
+  (``_held_pair``) and against the same work without a mesh (in a new
+  process too; losses relative 1e-5, weights lr/10); the ``auto``
+  Synthesizer on the mesh (eight texts, then batch 64 × the 512 bucket) in
+  bf16 and f32 as graphs, against eager and ``mesh=None`` at 0 LSB; ms a
+  step by bucket and ms a batch as graphs and eagerly, with and without
+  the mesh, and the graphs held;
 - two gloo ranks sharing the card: the (2, 1) and (1, 2) stage-1 steps
   against the single-device steps (losses rtol 2e-4 / atol 2e-5, weights
   lr/10), a (2, 1) GAN step (f32, batch 8) against one device, batch 64 ×
@@ -528,7 +535,8 @@ def streaming_phase(model, scale: float, sample_rate: int, card: str,
                     counters: Counters) -> dict:
     """StreamingSynthesizer at the flagship width in f32 (→ vocoder_tc32.cu)
     and bf16 (→ vocoder_tc.cu) over the eight texts, and one mel of 64
-    frames through the short path (→ vocoder_tc32.cu in both). Each stream
+    frames through the short path (→ vocoder_tc32.cu in both), then three
+    more lengths twice, one graph a length, replays bitwise eager. Each stream
     is held against its mel vocoded whole by the kernel and against the
     plain version's stream; then first-chunk latency, per-chunk device time
     and the stream's real-time factor."""
@@ -576,13 +584,33 @@ def streaming_phase(model, scale: float, sample_rate: int, card: str,
         if sp["fused_vocoder_tc32"] != len(rates) or sp["fused_vocoder_tc"]:
             raise RuntimeError(f"{cd} short path launched {sp}, expected "
                                f"{len(rates)} f32-kernel stage launches")
+    # the short path is one graph per length: three more lengths, each
+    # twice (a first call, then a replay), bitwise the eager call
+    sv = ss["f32"].vocoder
+    lengths = (17, W // 2, W)
+    held_before = sv.graphs.stats()
+    with graph_mode("eager"):
+        want = [sv.synthesize(mels["f32"][1][:n]) for n in lengths]
+    for _ in range(2):
+        for n, w in zip(lengths, want):
+            if not np.array_equal(sv.synthesize(mels["f32"][1][:n]), w):
+                raise RuntimeError(f"short path of {n} frames: replay "
+                                   "differs from eager")
+    held_after = sv.graphs.stats()
+    if held_after["graphs"] - held_before["graphs"] != len(lengths) \
+            or held_after["replays"] - held_before["replays"] != len(lengths):
+        raise RuntimeError(f"short path graphs: {held_before} before "
+                           f"{lengths}, {held_after} after")
+    short_graphs = {"lengths": list(lengths), "before": held_before,
+                    "after": held_after}
     launches = counters.read()
     if launches["fused_vocoder_tc"] < 1 or launches["fused_vocoder_tc32"] < 1:
         raise RuntimeError(f"streaming skipped a kernel: {launches}")
 
     out = {"phase": "streaming", "card": card, "launches": launches,
            "chunk_frames": 64, "window_frames": W,
-           "short_path_frames": int(short_mel.shape[0])}
+           "short_path_frames": int(short_mel.shape[0]),
+           "short_path_graphs": short_graphs}
     for cd, s in ss.items():
         sv = s.vocoder
         packed = {k: pack_vocoder_weights(model.vocoder, k)
@@ -1013,8 +1041,10 @@ def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
     batch path (batch 64 × the 512-frame bucket, bf16 and f32, int16 and
     μ-law with the mel, two duration scales, two text sets, a same-bucket
     ``synthesize_stream`` of three batches), one stream in each dtype and a
-    StreamBatcher of 4, ``swap_params``, and 8 f32 stage-1 steps at each
-    bucket; with the figures of both: audio-s/s, busy share, first chunk,
+    StreamBatcher of 4, two ``swap_params`` (written in place: they capture
+    no graph, and the replays give a fresh Synthesizer's PCM) and two
+    sample validations (``validator_swaps``), and 8 f32 stage-1 steps at
+    each bucket; with the figures of both: audio-s/s, busy share, first chunk,
     ms a step, and what ``warmup(full=True)`` costs in capture seconds and
     pool memory."""
     import tempfile
@@ -1103,22 +1133,38 @@ def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
         torch.cuda.empty_cache()
     out["warmup_full"] = warm
 
-    # ---- swap_params: the new weights' output is a fresh Synthesizer's
+    # ---- swap_params: written in place, so the graphs stay and replay the
+    # new weights' output, a fresh Synthesizer's; then two sample
+    # validations on two weight sets, the second capturing nothing
+    # (in the main path's 512-frame bucket: other weights may pick
+    # another bucket through the probe, whose graph is a new key)
     orig = {k: v.detach().clone() for k, v in synth.model.state_dict().items()}
     other = init_params(build_model(FLAGSHIP_MODEL),
                         torch.Generator().manual_seed(SEED + 7), "cuda")
+    b512 = {"duration_scale": scale, "max_frames": 512}
+    synth.synthesize_batch(EVAL_TEXTS, **b512)
+    held_before = synth.graph_stats()
     synth.swap_params(other.state_dict())
     fresh = pipeline.Synthesizer(other, vocoder_backend="auto",
                                  device="cuda", **buckets)
     swapped = {}
-    for i in range(2):  # a first call, then a replay
+    for i in range(2):  # both replays of graphs captured before the swap
         swapped[i] = _held_results(
-            synth.synthesize_batch(EVAL_TEXTS, scale),
-            fresh.synthesize_batch(EVAL_TEXTS, scale), "after swap_params")
+            synth.synthesize_batch(EVAL_TEXTS, **b512),
+            fresh.synthesize_batch(EVAL_TEXTS, **b512), "after swap_params")
     synth.swap_params(orig)
     restored = _held_results(synth.synthesize_batch(EVAL_TEXTS, scale),
                              results["bf16"], "swapped back")
-    out["swap_params"] = {"vs_fresh": swapped[1], "restored": restored}
+    held_after = synth.graph_stats()
+    if held_after["graphs"] != held_before["graphs"]:
+        raise RuntimeError(f"swap_params captured graphs: {held_before} "
+                           f"before two swaps, {held_after} after")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_val_") as vdir:
+        out["swap_params"] = {"vs_fresh": swapped[1], "restored": restored,
+                              "graphs_before": held_before,
+                              "graphs_after": held_after,
+                              "validator": validator_swaps(
+                                  orig, other.state_dict(), scale, vdir)}
     del fresh, other, orig
 
     # ---- streaming: one stream a dtype, a StreamBatcher of 4
@@ -1219,6 +1265,45 @@ def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+def validator_swaps(first: dict, second: dict, scale: float,
+                    out_dir: str) -> dict:
+    """Two sample validations (``training/validation.py``, the f32
+    ``torch``-backend yardstick on the eight texts) on ``first`` then
+    ``second``: the first captures the validator's graph, the second swaps
+    in place and captures none; then a synthesis at ``scale`` in the same
+    bucket (a replay) against a fresh validator's on ``second`` at 0
+    LSB."""
+    from m2tts_tpu_torch.models.tts_model import build_model
+    from m2tts_tpu_torch.training.validation import SampleValidator
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
+
+    def validator(name):
+        return SampleValidator(build_model(FLAGSHIP_MODEL).cuda(),
+                               eval_texts=EVAL_TEXTS,
+                               samples_dir=f"{out_dir}/{name}",
+                               text_bucket=128, frame_bucket=512,
+                               device="cuda")
+
+    v, fresh = validator("swapped"), validator("fresh")
+    runs = [v.run(first, 1)]
+    graphs = v._synth.graph_stats()
+    runs.append(v.run(second, 2))
+    fresh.run(second, 2)
+    if v._synth.graph_stats()["graphs"] != graphs["graphs"] \
+            or graphs["graphs"] < 1 \
+            or not all(r.get("validation_completed") for r in runs):
+        raise RuntimeError(f"validator: {graphs} after one run, "
+                           f"{v._synth.graph_stats()} after two; {runs}")
+    kw = {"duration_scale": scale, "max_frames": 512}
+    held_out = _held_results(v._synth.synthesize_batch(EVAL_TEXTS, **kw),
+                             fresh._synth.synthesize_batch(EVAL_TEXTS, **kw),
+                             "validator after a swap")
+    return {"graphs_after_one_run": graphs,
+            "graphs_after_two": v._synth.graph_stats(),
+            "vs_fresh": held_out,
+            "estimated_mos": [r.get("estimated_mos") for r in runs]}
 
 
 def train_config(model: dict, training: dict, out_dir: str,
@@ -2379,14 +2464,17 @@ def _max_rel(got: dict, want: dict) -> float:
 
 
 def _s2_state(t) -> dict:
-    out = {f"g.{k}": v for k, v in t.model.state_dict().items()}
-    out.update({f"d.{k}": v for k, v in t.discriminator.state_dict().items()})
-    if t.ema is not None:
-        out.update({f"ema.{n}": e for n, e in zip(t.g_names, t.ema)})
-    for net, opt in (("g", t.g_opt), ("d", t.d_opt)):
-        sd = opt.state_dict()
+    """A stage-2 trainer's gathered weights, EMA and Adam moments, on the
+    host (``_host_state``)."""
+    st = t._host_state()
+    out = {f"g.{k}": v for k, v in st["generator"].items()}
+    out.update({f"d.{k}": v for k, v in st["discriminator"].items()})
+    out.update({f"ema.{k}": v
+                for k, v in st.get("generator_ema", {}).items()})
+    for net in ("g", "d"):
         for m in ("mu", "nu"):
-            out.update({f"{net}.{m}.{k}": v for k, v in sd[m].items()})
+            out.update({f"{net}.{m}.{k}": v
+                        for k, v in st[f"{net}_opt_state"][m].items()})
     return out
 
 
@@ -2418,27 +2506,36 @@ def _held_pair(pair: dict, batches: list, step, state, what: str) -> dict:
 def _s2_batches(t, cached: bool, rng_seed: int = SEED) -> dict:
     """One device batch of each bucket: host segments, or (``cached``) the
     whole waveforms a device-cached step windows."""
+    from m2tts_tpu_torch.training.trainer import _rows
+
     rng = np.random.default_rng(rng_seed)
     if cached:
         def put(b):
             return t._transfer.transfer(dict(
                 b, audio=t._stage_audio(b["audio"], b["mel"].shape[1])))
     else:
-        def put(b):
-            return t._transfer.transfer(t._prepare(b, rng))
+        def put(b):  # this rank's rows on a mesh
+            return t._transfer.transfer(_rows(t._prepare(b, rng), t.mesh))
     return bucket_batches(t, put, t._max_audio_samples())
+
+
+def _turns(step, batches: dict, iters: int = 5, warmup: int = 2) -> dict:
+    """ms a ``step(batch)`` by bucket in turns: graph, eager, eager,
+    graph."""
+    ms: dict = {}
+    for mode in ("graph", "eager", "eager", "graph"):
+        with graph_mode(mode):
+            for (tb, fb), b in batches.items():
+                ms.setdefault(mode, {}).setdefault(f"{tb},{fb}", []).append(
+                    step_ms(step, b, iters=iters, warmup=warmup))
+    return ms
 
 
 def _timed_both_ways(step, batches: dict, b512, card: str, phase: str,
                      iters: int = 5) -> dict:
     """ms a ``step(batch)`` by bucket in turns (graph, eager, eager,
     graph), and 3 steps at ``b512`` profiled both ways."""
-    ms = {}
-    for mode in ("graph", "eager", "eager", "graph"):
-        with graph_mode(mode):
-            for (tb, fb), b in batches.items():
-                ms.setdefault(mode, {}).setdefault(f"{tb},{fb}", []).append(
-                    step_ms(step, b, iters=iters))
+    ms = _turns(step, batches, iters)
     prof = {}
     for mode in ("graph", "eager"):
         with graph_mode(mode):
@@ -3146,10 +3243,14 @@ def md_stage2(out_dir: str, dev: torch.device, mesh=None) -> dict:
 
 
 def md_synth(scale: float, texts, dev: torch.device, mesh=None,
-             time_dtype=None) -> dict:
+             held: bool = False) -> dict:
     """The flagship ``Synthesizer`` (``auto``: the kernels) in bf16 and f32
-    on ``texts``: frames and PCM per dtype, the kernels' launches from the
-    first Synthesizer's making on, and for ``time_dtype`` ms a batch."""
+    on ``texts``: frames and PCM per dtype (graph replays without a mesh
+    and on an NCCL mesh), the kernels' launches from the first
+    Synthesizer's making on. With ``held``, each dtype's first call (eager,
+    then its capture) and a replay held against ``disable_graphs()`` eager
+    at 0 LSB, the graphs held, and ms a batch in bf16 as graphs and eagerly
+    in turns."""
     from m2tts_tpu_torch.ops.cuda import build, vocoder as cuda_vocoder
     from m2tts_tpu_torch.serving import pipeline
     from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL
@@ -3163,44 +3264,152 @@ def md_synth(scale: float, texts, dev: torch.device, mesh=None,
                                  compute_dtype=cd, mesh=mesh, **MD_BUCKETS)
         res = s.synthesize_batch(texts, duration_scale=scale)
         out[cd] = [(r["frames"], r["audio_pcm"]) for r in res]
-        if cd == time_dtype:  # warm first: a spawned process starts cold
-            for _ in range(3):
-                s.synthesize_batch(texts, duration_scale=scale)
-            t0 = time.perf_counter()
-            for _ in range(10):
-                s.synthesize_batch(texts, duration_scale=scale)
-            out["ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / 10
+        if not held:
+            continue
+        with graph_mode("eager"):
+            want = s.synthesize_batch(texts, duration_scale=scale)
+        out[f"{cd}_vs_eager"] = {
+            "first_call": _held_results(res, want, f"{cd} first call"),
+            "replay": _held_results(s.synthesize_batch(
+                texts, duration_scale=scale), want, f"{cd} replay")}
+        out[f"{cd}_graphs"] = s.graph_stats()
+        if cd == "bf16":
+            out["bf16_turns"] = []
+            for mode in ("graph", "eager", "eager", "graph"):
+                with graph_mode(mode):
+                    out["bf16_turns"].append(
+                        {"mode": mode, **_throughput(s, texts, scale)})
     out["launches"] = counters.read()
+    return out
+
+
+def _s1_state(t) -> dict:
+    """A stage-1 trainer's gathered weights and Adam moments, on the
+    host."""
+    st = t._host_state_copy()
+    out = {f"p.{k}": v for k, v in st["params"].items()}
+    for m in ("mu", "nu"):
+        out.update({f"{m}.{k}": v for k, v in st["opt_state"][m].items()})
+    return out
+
+
+def md_stage1_graphs(out_dir: str, dev: torch.device, mesh=None) -> dict:
+    """The flagship stage-1 step (f32, TF32 off) at each bucket twice (a
+    bucket's first call, eager then its capture, then a replay) on two
+    trainers, as graphs and under ``disable_graphs()``, deterministic
+    algorithms on (``_held_pair``); the graph run's losses and gathered
+    weights after them; ms a step by bucket both ways; its graphs."""
+    from m2tts_tpu_torch.training.trainer import Stage1Trainer
+    from m2tts_tpu_torch.utils.config import (FLAGSHIP_MODEL,
+                                              FLAGSHIP_TRAINING)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pair = {mode: Stage1Trainer(train_config(
+        FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{out_dir}/{mode}", **MD_TRAIN),
+        device=dev, mesh=mesh) for mode in ("eager", "graph")}
+    g = pair["graph"]
+    if g._graphs is None or (mesh is not None and g.mesh is None):
+        raise RuntimeError(f"stage 1 on mesh {mesh}: no graphs")
+    batches = bucket_batches(g, g._put)
+    losses = []
+
+    def step(t, b):
+        out = t._train_step(b)
+        t.step += 1
+        if t is g:
+            losses.append({k: v.item() for k, v in out.items()})
+        return out
+
+    held = _held_pair(pair, list(batches.values()) * 2, step, _s1_state,
+                      f"stage 1 (mesh {mesh is not None})")
+    out = {"held": held, "losses": losses,
+           "params": g._host_state_copy()["params"],
+           "graphs": g._graphs.stats(),
+           "ms_per_step_by_bucket": _turns(g._train_step, batches, 3, 1)}
+    for t in pair.values():
+        t.close()
+    del pair, g, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def md_gan_graphs(out_dir: str, dev: torch.device, mesh=None) -> dict:
+    """The flagship GAN step with the packed discriminator
+    (FLAGSHIP_TRAINING: batch 32, bf16, 8192-sample segments) at the
+    (128, 512) bucket twice on two trainers, as graphs and under
+    ``disable_graphs()``, deterministic algorithms where they exist
+    (``_held_pair``); the graph run's metrics and gathered generator; ms a
+    step both ways; its graphs."""
+    from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
+    from m2tts_tpu_torch.utils.config import FLAGSHIP_MODEL, FLAGSHIP_TRAINING
+
+    pair = {mode: Stage2Trainer(train_config(
+        FLAGSHIP_MODEL, FLAGSHIP_TRAINING, f"{out_dir}/{mode}",
+        overrides=PACKED_OVERRIDES, **{"training.disc_lowering": "packed"}),
+        device=dev, mesh=mesh) for mode in ("eager", "graph")}
+    g = pair["graph"]
+    if g._graphs is None or g.disc_lowering != "packed":
+        raise RuntimeError(f"GAN step on mesh {mesh}: graphs {g._graphs}, "
+                           f"lowering {g.disc_lowering}")
+    b512 = {k: v for k, v in _s2_batches(g, cached=False).items()
+            if k == tuple(g.buckets[1])}
+    metrics = []
+
+    def step(t, b):
+        out = t.train_step(b)
+        if t is g:
+            metrics.append({k: v.item() for k, v in out.items()})
+        return out
+
+    held = _held_pair(pair, list(b512.values()) * 2, step, _s2_state,
+                      f"GAN step (mesh {mesh is not None})")
+    out = {"held": held, "losses": metrics,
+           "params": g._host_state()["generator"],
+           "graphs": g._graphs.stats(),
+           "ms_per_step_by_bucket": _turns(g.train_step, b512, 3, 1)}
+    for t in pair.values():
+        t.close()
+    del pair, g, b512
+    torch.cuda.empty_cache()
     return out
 
 
 def md_no_mesh(out_dir: str, scale: float) -> dict:
     """The same work without a mesh, in a new process as the ranks are (so
-    that ms a step and ms a batch compare like with like): stage 1 twice
-    (the card's own spread), the GAN step, the synthesis."""
+    that ms a step and ms a batch compare like with like): the gloo ranks'
+    references (three stage-1 steps, the f32 GAN step, the synthesis), and
+    the NCCL rank's (the stage-1 and GAN graphs held against eager, batch
+    64 held and timed)."""
     torch.set_num_threads(1)  # as each rank of a world
     dev = _md_device()
     return {"stage1": md_stage1(f"{out_dir}/md_plain", dev),
-            "stage1_again": md_stage1(f"{out_dir}/md_plain_again", dev),
+            "stage1_graphs": md_stage1_graphs(f"{out_dir}/md_plain_g", dev),
+            "gan_graphs": md_gan_graphs(f"{out_dir}/md_plain_gan", dev),
             "stage2": md_stage2(f"{out_dir}/md_plain_s2", dev),
             "synth": md_synth(scale, EVAL_TEXTS, dev),
             "synth64": md_synth(scale, (EVAL_TEXTS * 8)[:64], dev,
-                                time_dtype="bf16")}
+                                held=True)}
 
 
 def md_world1_rank(out_dir: str, scale: float) -> dict:
-    """World size 1 (NCCL on the card): the (1, 1) mesh's stage-1 steps and
-    synthesis (the eight texts, then batch 64 timed), to hold against
-    ``mesh=None``."""
-    from m2tts_tpu_torch.parallel.mesh import make_mesh
+    """World size 1 (NCCL on the card): on the (1, 1) mesh the stage-1 and
+    GAN steps and the synthesis (the eight texts, then batch 64) as graph
+    replays held against eager, to hold against ``mesh=None`` too."""
+    from m2tts_tpu_torch.parallel.mesh import is_nccl, make_mesh
 
     dev = _md_device()
     mesh = make_mesh()
+    if not is_nccl(mesh):
+        raise RuntimeError("the one-rank world's mesh is not NCCL's")
     return {"backend": torch.distributed.get_backend(),
-            "stage1": md_stage1(f"{out_dir}/md_world1", dev),
+            "stage1_graphs": md_stage1_graphs(f"{out_dir}/md_world1", dev,
+                                              mesh),
+            "gan_graphs": md_gan_graphs(f"{out_dir}/md_world1_gan", dev,
+                                        mesh),
             "synth": md_synth(scale, EVAL_TEXTS, dev, mesh),
             "synth64": md_synth(scale, (EVAL_TEXTS * 8)[:64], dev, mesh,
-                                time_dtype="bf16")}
+                                held=True)}
 
 
 def md_gloo_rank(out_dir: str, scale: float) -> dict:
@@ -3240,8 +3449,9 @@ def _md_steps(got: dict, want: dict, loss_tol: dict, what: str,
                  for k, v in want["params"].items())
     if params > MD_PARAMS_ATOL:
         faults.append(f"{what}: weights {params} from one device's")
-    return {"loss_max_rel": rel, "params_max_abs": params,
-            "ms_per_step": got["ms_per_step"], "mesh": got["mesh"]}
+    out = {"loss_max_rel": rel, "params_max_abs": params}
+    out.update({k: got[k] for k in ("ms_per_step", "mesh") if k in got})
+    return out
 
 
 def _md_synth(got: dict, want: dict, lsb: int, what: str,
@@ -3291,24 +3501,36 @@ def multi_device_phase(out_dir: str, scale: float, card: str) -> dict:
 
     faults: list = []
     world1_tol = {"rtol": TRAIN_VS_CPU["loss_rel"], "atol": 0}
-    world1 = {
-        # the card's own spread: the same steps twice without a mesh
-        "stage1_no_mesh_twice": _md_steps(plain["stage1_again"],
-                                          plain["stage1"], world1_tol,
-                                          "no mesh, twice", faults),
-        "stage1": _md_steps(nccl["stage1"], plain["stage1"], world1_tol,
-                            "world 1 (1, 1) stage 1", faults),
+    world1 = {"backend": nccl["backend"], "seconds": t_gloo - t_nccl}
+    for key, what in (("stage1_graphs", "stage 1"), ("gan_graphs", "GAN")):
+        m, p = nccl[key], plain[key]
+        world1[key] = {
+            "graph_vs_eager": {"mesh": m["held"], "no_mesh": p["held"]},
+            "mesh_vs_no_mesh": _md_steps(m, p, world1_tol,
+                                         f"world 1 (1, 1) {what}", faults),
+            "graphs": {"mesh": m["graphs"], "no_mesh": p["graphs"]},
+            "ms_per_step_by_bucket": {
+                "mesh": m["ms_per_step_by_bucket"],
+                "no_mesh": p["ms_per_step_by_bucket"]}}
+        if m["graphs"]["graphs"] < 1 or m["graphs"]["replays"] < 1:
+            faults.append(f"world 1 {what}: graphs {m['graphs']}")
+    world1.update({
         "synth_8": _md_synth(nccl["synth"], plain["synth"], 0,
                              "world 1 (1, 1) synthesis", faults),
         "synth_64": _md_synth(nccl["synth64"], plain["synth64"], 0,
                               "world 1 (1, 1) batch 64", faults),
-        "ms_per_step": {"mesh": nccl["stage1"]["ms_per_step"],
-                        "no_mesh": plain["stage1"]["ms_per_step"]},
-        "ms_per_batch64_bf16": {"mesh": nccl["synth64"]["ms_per_batch"],
-                                "no_mesh": plain["synth64"]["ms_per_batch"]},
+        "synth_64_vs_eager": {cd: nccl["synth64"][f"{cd}_vs_eager"]
+                              for cd in ("bf16", "f32")},
+        "synth_64_graphs": {cd: nccl["synth64"][f"{cd}_graphs"]
+                            for cd in ("bf16", "f32")},
+        "batch64_bf16_turns": {"mesh": nccl["synth64"]["bf16_turns"],
+                               "no_mesh": plain["synth64"]["bf16_turns"]},
         "launches": {k: nccl["synth"]["launches"][k]
-                     + nccl["synth64"]["launches"][k] for k in Counters.NAMES},
-        "seconds": t_gloo - t_nccl}
+                     + nccl["synth64"]["launches"][k]
+                     for k in Counters.NAMES}})
+    for cd in ("bf16", "f32"):
+        if nccl["synth64"][f"{cd}_graphs"]["replays"] < 1:
+            faults.append(f"world 1 batch 64 {cd}: no replay")
     world2 = {"ranks": []}
     for r, res in enumerate(gloo):
         s2 = res["stage2_2x1"]
@@ -3338,6 +3560,8 @@ def multi_device_phase(out_dir: str, scale: float, card: str) -> dict:
            "bars": {"world_1_loss_rel": TRAIN_VS_CPU["loss_rel"],
                     "loss": MD_LOSS,
                     "params_abs": MD_PARAMS_ATOL,
+                    "graph_vs_eager": {"bitwise_or_rel": GRAPH_NONDET,
+                                       "pcm_lsb": 0},
                     "pcm_lsb": {"world_1": 0, "gloo_2x1": 1}},
            "faults": faults, "seconds": time.perf_counter() - t0,
            "reference_seconds": t_nccl - t0}

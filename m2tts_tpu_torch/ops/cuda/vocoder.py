@@ -454,6 +454,22 @@ def _tc_operands(packed: Dict, c_mel: int, device,
     return hit[2]
 
 
+@torch.no_grad()
+def refresh_operands(packed: Dict) -> None:
+    """The tensor-core operands cached for ``packed`` (any compute dtype and
+    device) rebuilt from its current weights, into the same tensors: a CUDA
+    graph that captured a launch on them replays the new weights."""
+    w = packed["input_conv"]["w"]
+    for ref, device, ops in list(_TC_CACHE.values()):
+        if ref() is not w:
+            continue
+        for i, (st, old) in enumerate(ops):
+            new = _tc_pack_stage(packed, i, st, device)
+            for k, v in old.items():
+                if isinstance(v, torch.Tensor):
+                    v.copy_(new[k])
+
+
 def _tc_launch(x: torch.Tensor, st: Dict, ops: Dict) -> torch.Tensor:
     """One tensor-core stage launch on the padded layout: x is the f32 mel
     (first) or [B, T, cip] in the compute dtype; returns [B, T·r, cop] in

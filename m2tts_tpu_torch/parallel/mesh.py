@@ -170,6 +170,23 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def local_leaf(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor parameter's local tensor as a leaf of its own that shares
+    its storage: in-place writes reach the DTensor, autograd differentiates
+    by it, and nothing done on it dispatches through DTensor. Anything else
+    as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.detach().to_local().detach().requires_grad_(t.requires_grad)
+
+
+def is_nccl(mesh) -> bool:
+    """Whether every process group of ``mesh`` is NCCL's: a CUDA graph
+    captures NCCL's collectives, and none of gloo's."""
+    return all(dist.get_backend(mesh.get_group(axis)) == "nccl"
+               for axis in mesh.mesh_dim_names)
+
+
 @torch.no_grad()
 def mean_over(tensors: Sequence[torch.Tensor], mesh, axis: str = "data"
               ) -> None:

@@ -26,7 +26,7 @@ on every rank's copy, no collective) and ``full_tree`` gathers it back.
 from __future__ import annotations
 
 import re
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -202,19 +202,49 @@ def local_module(module: nn.Module) -> nn.Module:
     return module
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax's global norm of a gradient held as DTensors: the local shards'
-    sums of squares, all-reduced over 'model' for the sharded ones only
-    (a replicated tensor is whole on every rank). A plain tensor, the same
-    on every rank."""
+def _is_sharded(t: torch.Tensor) -> bool:
+    return isinstance(t, DTensor) and any(s.is_shard() for s in t.placements)
+
+
+def sharding(tensors: Sequence[torch.Tensor]
+             ) -> Tuple[List[bool], Optional[Any]]:
+    """(whether each of ``tensors`` is sharded, the process group of the
+    first sharded one's mesh, None when none is): what ``global_norm`` needs
+    of their local tensors."""
+    sharded = [_is_sharded(t) for t in tensors]
+    group = next((t.device_mesh.get_group() for t, s in zip(tensors, sharded)
+                  if s), None)
+    return sharded, group
+
+
+def place_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The local tensor ``t`` as a DTensor placed as the DTensor ``like`` is
+    (its mesh, placements and global shape; no collective, shares ``t``'s
+    storage); ``t`` as it is when ``like`` is a plain tensor."""
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def global_norm(tensors: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """optax's global norm of a gradient held as DTensors, or as their local
+    tensors with ``sharded`` and ``group`` (``sharding`` of the DTensors):
+    the local shards' sums of squares, all-reduced over ``group`` for the
+    sharded ones only (a replicated tensor is whole on every rank). A plain
+    tensor, the same on every rank."""
     tensors = list(tensors)
-    rep = [local(t) for t in tensors
-           if not any(s.is_shard() for s in t.placements)]
-    sharded = [t for t in tensors if any(s.is_shard() for s in t.placements)]
+    if sharded is None:
+        sharded, group = sharding(tensors)
+        tensors = [local(t) for t in tensors]
+    rep = [t for t, s in zip(tensors, sharded) if not s]
+    shd = [t for t, s in zip(tensors, sharded) if s]
     rep_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(rep)))
-    if not sharded:
+    if not shd:
         return rep_norm
-    sq = torch.stack(torch._foreach_norm([local(t) for t in sharded])
-                     ).square().sum()
-    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group())
+    sq = torch.stack(torch._foreach_norm(shd)).square().sum()
+    dist.all_reduce(sq, group=group)
     return torch.sqrt(rep_norm.square() + sq)

@@ -25,9 +25,16 @@ every rank calls the same method with the same texts, runs its rows of the
 bucket (the transformer split over 'model' by the TP rules) and gathers
 the results, so every rank returns the single-device result. A server's
 rank 0 ``lead``s: each device call is first broadcast to the other ranks,
-which run ``serve_followers``. A Synthesizer on a mesh runs eagerly: its
-weights are DTensor-placed and its results are gathered through the
-process group, which no graph captures here.
+which run ``serve_followers``, so every rank captures and replays the same
+keys in the same order. On an NCCL mesh the probe and the synthesis are
+graphs as without one (holding the TP forward's all-reduces); the gather
+of the ranks' rows (``all_gather_rows``) runs after the replay, outside the
+graph. A gloo mesh runs eagerly.
+
+``swap_params`` writes new weights into the tensors every graph reads (the
+model's, its bf16 copy's, the packed vocoder weights and the kernels'
+operands), so a swap keeps every graph, as the JAX package's swap keeps
+every compiled program.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from __future__ import annotations
 import copy
 import logging
 import re
-from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+from typing import (Dict, Iterable, Iterator, List, Optional,
                     Sequence, Tuple)
 
 import numpy as np
@@ -51,7 +58,7 @@ from m2tts_tpu_torch.parallel import partition
 from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import resolve_device
-from m2tts_tpu_torch.utils.graphs import GraphRunner
+from m2tts_tpu_torch.utils.graphs import step_graphs
 
 logger = logging.getLogger(__name__)
 
@@ -153,18 +160,55 @@ def resolve_backend(vocoder_backend: str, compute_dtype: str,
     return vocoder_backend, compute_dtype
 
 
-def make_vocoder_fn(model: M2TTS, vocoder_backend: str, compute_dtype: str
-                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+class VocoderFn:
     """The packed-weight vocoder dispatch ``vf(mel) -> audio`` (f32 mel
-    [B, T, C] → f32 audio [B, T·U]) for the 'mm' and 'cuda' backends.
+    [B, T, C] → f32 audio [B, T·U]) for the 'mm' and 'cuda' backends
+    (``make_vocoder_fn``). ``packed``: the weights of ``model.vocoder``
+    packed for ``compute_dtype``, at the first call; ``refresh()`` packs
+    them again into the same tensors (and the kernels' operands derived
+    from them) after the module's weights changed in place, so a CUDA graph
+    that holds the call replays the new weights."""
+
+    def __init__(self, model: M2TTS, vocoder_backend: str,
+                 compute_dtype: str):
+        self.model, self.backend = model, vocoder_backend
+        self.compute_dtype = compute_dtype
+        self.packed: Optional[Dict] = None
+
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        if self.packed is None:
+            self.packed = pack_vocoder_weights(self.model.vocoder,
+                                               self.compute_dtype)
+        if self.backend == "mm":
+            return vocoder_mm_forward(mel, self.packed, self.compute_dtype)
+        from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
+
+        return fused_vocoder_forward(mel.contiguous(), self.packed,
+                                     self.model.upsample_rates,
+                                     self.compute_dtype)
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        if self.packed is None:  # the first call packs the current weights
+            return
+        _copy_into(self.packed, pack_vocoder_weights(self.model.vocoder,
+                                                     self.compute_dtype))
+        if self.backend == "cuda":
+            from m2tts_tpu_torch.ops.cuda.vocoder import refresh_operands
+
+            refresh_operands(self.packed)
+
+
+def make_vocoder_fn(model: M2TTS, vocoder_backend: str, compute_dtype: str
+                    ) -> VocoderFn:
+    """The packed-weight vocoder dispatch (``VocoderFn``) for the 'mm' and
+    'cuda' backends.
 
     One definition for the batch (``Synthesizer``) and streaming
     (``StreamingVocoder``) paths, so the two cannot drift in backend or
-    dtype. The weights of ``model.vocoder`` are packed for
-    ``compute_dtype`` at the first call and kept; a caller whose weights
-    change makes a new ``vf``. 'cuda' needs the model on a CUDA device and
-    builds and probes the kernels here (raising on failure); its ``vf``
-    launches ``vocoder_tc.cu`` (bf16) or ``vocoder_tc32.cu`` (f32).
+    dtype. 'cuda' needs the model on a CUDA device and builds and probes
+    the kernels here (raising on failure); its call launches
+    ``vocoder_tc.cu`` (bf16) or ``vocoder_tc32.cu`` (f32).
     """
     if compute_dtype not in DTYPES:
         raise ValueError(f"Unknown compute_dtype {compute_dtype!r}")
@@ -179,21 +223,19 @@ def make_vocoder_fn(model: M2TTS, vocoder_backend: str, compute_dtype: str
     elif vocoder_backend != "mm":
         raise ValueError(f"Unknown vocoder_backend {vocoder_backend!r} "
                          "for the packed-weight vocoder")
-    rates = model.upsample_rates
-    packed: Optional[Dict] = None
+    return VocoderFn(model, vocoder_backend, compute_dtype)
 
-    def vf(mel: torch.Tensor) -> torch.Tensor:
-        nonlocal packed
-        if packed is None:
-            packed = pack_vocoder_weights(model.vocoder, compute_dtype)
-        if vocoder_backend == "mm":
-            return vocoder_mm_forward(mel, packed, compute_dtype)
-        from m2tts_tpu_torch.ops.cuda.vocoder import fused_vocoder_forward
 
-        return fused_vocoder_forward(mel.contiguous(), packed, rates,
-                                     compute_dtype)
-
-    return vf
+def _copy_into(dst, src) -> None:
+    """Every tensor of the nest ``src`` copied into its twin in ``dst``."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
 
 
 def probe_frames(model: M2TTS, ids: torch.Tensor, lengths: torch.Tensor,
@@ -271,19 +313,25 @@ class Synthesizer:
         self.vocoder_backend, self.compute_dtype = resolve_backend(
             vocoder_backend, compute_dtype, self.device)
         self.config: Optional[Config] = None
-        # one CUDA graph per bucket key (eager on the CPU and on a mesh)
-        self._graphs = GraphRunner(self.device) if mesh is None else None
-        self._drop_caches()
-
-    def _drop_caches(self) -> None:
-        """Forget every derived copy of the weights (bf16 model, packed
-        vocoder weights) and every graph, which reads them."""
+        # one CUDA graph per bucket key (None, so eager, on the CPU and on
+        # a gloo mesh)
+        self._graphs = step_graphs(self.device, mesh)
         self._bf16_model: Optional[M2TTS] = None
         self._vocode = (None if self.vocoder_backend == "torch" else
                         make_vocoder_fn(self.model, self.vocoder_backend,
                                         self.compute_dtype))
-        if self._graphs is not None:
-            self._graphs.drop()
+
+    @torch.no_grad()
+    def _refresh_copies(self) -> None:
+        """The model's current weights written into its derived copies (the
+        bf16 model, the packed vocoder weights), in place: the graphs,
+        which read those tensors, stay valid."""
+        if self._bf16_model is not None:
+            weights = self.model.state_dict()
+            for k, v in self._bf16_model.state_dict().items():
+                v.copy_(weights[k])
+        if self._vocode is not None:
+            self._vocode.refresh()
 
     def _synth_model(self) -> M2TTS:
         if self.compute_dtype == "f32":
@@ -315,14 +363,14 @@ class Synthesizer:
 
     def _call(self, key, fn, *args):
         """``fn(*args)`` on the device: a replay of the key's graph; eager
-        on a mesh."""
+        on the CPU and on a gloo mesh."""
         if self._graphs is None:
             return fn(*(a.to(self.device) for a in args))
         return self._graphs(key, fn, *args)
 
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of a result, whole (as it is without a
-        mesh)."""
+        """Every rank's rows of a result, whole (as it is without a mesh);
+        after a graph's replay, not inside it."""
         return t if self.mesh is None else pmesh.all_gather_rows(t, self.mesh)
 
     @torch.no_grad()
@@ -473,10 +521,12 @@ class Synthesizer:
     @torch.no_grad()
     def swap_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Replace the serving weights with a state dict of identical keys,
-        shapes and dtypes; every derived copy (bf16 model, packed vocoder
-        weights) is dropped and rebuilt from the new weights. On a mesh the
-        global weights are placed as at construction (a leader sends them
-        to its followers once they pass the checks here)."""
+        shapes and dtypes, in place: the model's tensors, then every
+        derived copy (bf16 model, packed vocoder weights) from them, so no
+        graph is dropped or captured again. On a mesh the global weights
+        are placed as at construction and copied into the local tensors (a
+        leader sends them to its followers once they pass the checks
+        here)."""
         current = (self.model.state_dict() if self.mesh is None else
                    {k: torch.empty(s, dtype=d, device="meta")
                     for k, (s, d) in self._global.items()})
@@ -495,8 +545,8 @@ class Synthesizer:
         if self.mesh is not None:
             state_dict = partition.local_tree(
                 partition.shard_tree(state_dict, self.mesh))
-        self.model.load_state_dict(state_dict)
-        self._drop_caches()
+        self.model.load_state_dict(state_dict)  # copies in place
+        self._refresh_copies()
 
     # -- SPMD serving on a mesh ---------------------------------------------
     def lead(self) -> None:
@@ -618,7 +668,7 @@ class Synthesizer:
 
     def graph_stats(self) -> Dict:
         """The graph runner's counts (``GraphRunner.stats``); no graphs on
-        a mesh."""
+        the CPU and on a gloo mesh."""
         return ({"graphs": 0} if self._graphs is None
                 else self._graphs.stats())
 

@@ -26,8 +26,10 @@ windows, the acoustic pass one per (batch, text bucket), and the fused
 acoustic pass + first chunk one per text bucket (``utils/graphs.py``, the
 counterparts of the JAX package's jitted ``run_chunk``, ``acoustic`` and
 ``acoustic_first``); a window is copied into the chunk graph's input and
-the duration scale into the acoustic graphs'. The short path stays eager
-(one length per call).
+the duration scale into the acoustic graphs'. The short path is one graph
+per length in the chunk graphs' runner, as JAX compiles and caches it once
+per length; it is not padded to the window, whose zero frames would not be
+the utterance's true boundary.
 
 Every generator here runs under ``torch.inference_mode`` in the thread that
 consumes it.
@@ -134,10 +136,12 @@ class StreamingVocoder:
                    total - self._window)
 
     def _short(self, mel: torch.Tensor) -> np.ndarray:
-        """The whole mel [T, C] (T ≤ window) in one f32 call."""
+        """The whole mel [T, C] (T ≤ window) in one f32 call: one graph per
+        T."""
         if mel.shape[0] == 0:
             return np.zeros(0, np.float32)
-        return self._full(mel[None].contiguous())[0].cpu().numpy()
+        return self.graphs(("short",), self._full,
+                           mel[None])[0].cpu().numpy()
 
     @torch.inference_mode()
     def stream(self, mel, total_frames: Optional[int] = None

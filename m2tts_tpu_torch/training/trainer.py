@@ -26,8 +26,9 @@ arithmetic:
   goes on; an OOM inside the optimizer update (which may have updated some
   tensors) restores the last host snapshot and rewinds the step. Non-finite
   losses rewind to the same snapshot, a bounded number of times;
-- on CUDA without a mesh the step is one CUDA graph per data bucket, the
-  counterpart of JAX's ``jax.jit(step_fn)`` (``utils/graphs.py``):
+- on CUDA (without a mesh, or on an NCCL mesh) the step is one CUDA graph
+  per data bucket, the counterpart of JAX's ``jax.jit(step_fn)``
+  (``utils/graphs.py``):
   forward, backward, one global norm, the clip and a capturable AdamW
   whose lr is a device tensor, with the dropout generator registered with
   the graph and reseeded by the host before each replay, so a replay draws
@@ -38,8 +39,10 @@ arithmetic:
   eagerly and captures; an OOM there restores the last snapshot. Loading
   optimizer state drops the graphs. The eval step (``_eval_step``, JAX's
   ``_build_eval_step``) is one graph per bucket too, reading the live
-  weights, which training and restores update in place. The mesh runs
-  eagerly.
+  weights, which training and restores update in place. On an NCCL mesh
+  the graphs hold the step's collectives (the gradient and loss means over
+  'data', the TP norm's all-reduce, Megatron's f and g); an OOM there
+  raises, as every OOM on a mesh does. A gloo mesh runs eagerly.
 
 The state a checkpoint holds is ``{"params": state_dict, "opt_state":
 Optimizer.state_dict(), "step": int}``; ``utils.checkpoint.load_for_inference``
@@ -48,10 +51,10 @@ and ``serving.pipeline.from_checkpoint`` serve it as it is.
 On a ('data', 'model') mesh (``mesh=``, or ``system.mesh`` under
 ``torchrun``; ``parallel/``) every rank iterates the same seeded global
 batches and keeps its rows; every parameter is a DTensor (TP rules on the
-transformer blocks, ``Replicate()`` elsewhere), the forward runs on their
-local tensors, and gradients and losses are averaged over 'data' (each
-loss is a mean over equal shards, so the mean of the ranks' means is the
-global mean). Checkpoints hold the gathered global weights in the
+transformer blocks, ``Replicate()`` elsewhere), the forward and the
+optimizer run on their local tensors, and gradients and losses are
+averaged over 'data' (each loss is a mean over equal shards, so the mean
+of the ranks' means is the global mean). Checkpoints hold the gathered global weights in the
 single-device format, written by rank 0 alone, as are the logs and
 ``best/``; validation losses are averaged over 'data', so every rank
 sees the same. Without a mesh none of this runs.
@@ -177,13 +180,9 @@ def make_lr_schedule(cfg) -> Callable[[int], float]:
 # -- the optimizer ---------------------------------------------------------
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, on their device (of the
-    global tensors for DTensors: ``partition.global_norm``)."""
-    tensors = list(tensors)
-    if tensors and isinstance(tensors[0], DTensor):
-        return partition.global_norm(tensors)
+    """sqrt of the sum of squares over all tensors, on their device."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        tensors)))
+        list(tensors))))
 
 
 class Optimizer:
@@ -210,13 +209,26 @@ class Optimizer:
     the lr when it applies), ``device_update`` (device tensors only:
     accumulate, and apply when told) and ``end_update`` (host: the
     counts). The branch is the host's; a graph holds one per branch.
+
+    On a mesh the parameters are DTensors, which serve placement only:
+    everything here (AdamW, the clip, the accumulator) runs on each
+    parameter's local tensor (``params``), so no operation dispatches
+    through DTensor and a graph holds the whole update. The TP global norm
+    keeps its one all-reduce over the sharded local tensors. ``state_dict``
+    returns each state tensor placed as its parameter, so a checkpoint
+    gathers to the global tensors as before.
     """
 
     def __init__(self, cfg, named_params: Iterable[Tuple[str, torch.Tensor]],
                  capturable: bool = False):
         named = list(named_params)
         self.names = [n for n, _ in named]
-        self.params = [p for _, p in named]
+        #: the parameters as the model holds them (DTensors on a mesh)
+        self.placed = [p for _, p in named]
+        #: what is updated and differentiated by: each parameter's local
+        #: tensor on a mesh (a leaf sharing its storage), else the parameter
+        self.params = [pmesh.local_leaf(p) for p in self.placed]
+        self._sharded, self._group = partition.sharding(self.placed)
         self.schedule = make_lr_schedule(cfg)
         self.max_norm = float(cfg.get("gradient_clip_norm", 5.0))
         self.k = int(cfg.get("gradient_accumulation_steps", 1))
@@ -243,13 +255,20 @@ class Optimizer:
             torch.ones((), dtype=torch.float32, device=self.params[0].device)
             if self.k > 1 else None)
 
+    def norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient of ``params`` (of the global
+        tensors on a mesh whose 'model' axis shards some: one all-reduce)."""
+        if self._group is None:
+            return global_norm(grads)
+        return partition.global_norm(grads, self._sharded, self._group)
+
     def clip(self, grads: Sequence[torch.Tensor],
              norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """``optax.clip_by_global_norm``: ``(g / norm) * max_norm`` when
         ``norm >= max_norm``, else ``g`` unchanged, chosen on the device.
         ``norm``: the global norm of ``grads`` where the caller has it."""
         if norm is None:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
         keep = norm < self.max_norm
         one = torch.ones_like(norm)
         denom = torch.where(keep, one, norm)
@@ -340,42 +359,46 @@ class Optimizer:
         """optax's state in the port's names: Adam's moments ``mu``/``nu``
         by parameter name (empty before the first update), the applied
         ``count``, and under accumulation ``acc_grads`` and
-        ``mini_step``."""
+        ``mini_step``; on a mesh each tensor placed as its parameter
+        (``partition.place_like``)."""
         mu, nu = {}, {}
-        for n, p in zip(self.names, self.params):
+        for n, p, q in zip(self.names, self.params, self.placed):
             st = self.adamw.state.get(p)
             if st:
-                mu[n], nu[n] = st["exp_avg"], st["exp_avg_sq"]
+                mu[n] = partition.place_like(st["exp_avg"], q)
+                nu[n] = partition.place_like(st["exp_avg_sq"], q)
         return {"count": self.count, "mu": mu, "nu": nu,
                 "mini_step": self.mini_step,
-                "acc_grads": (None if self.acc is None
-                              else dict(zip(self.names, self.acc)))}
+                "acc_grads": (None if self.acc is None else {
+                    n: partition.place_like(a, q)
+                    for n, a, q in zip(self.names, self.acc, self.placed)})}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         """Global tensors (a checkpoint's) are placed as each parameter is:
-        copied to its device, or sharded as its DTensor. The state tensors
-        are new ones (``loads`` counts the loads)."""
-        def like(t, p):
-            if isinstance(p, DTensor):
-                return partition.shard_like(t, p)
-            return t.to(p.device, p.dtype, copy=True)
+        copied to its device, or on a mesh this rank's part of them. The
+        moments are new tensors (``loads`` counts the loads); the
+        accumulator is written in place."""
+        def like(t, q):
+            if isinstance(q, DTensor):
+                return partition.shard_like(t, q).to_local()
+            return t.to(q.device, q.dtype, copy=True)
 
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
         self.adamw.state.clear()
-        for n, p in zip(self.names, self.params):
+        for n, p, q in zip(self.names, self.params, self.placed):
             if n in state["mu"]:
                 self.adamw.state[p] = {
                     "step": torch.tensor(
                         float(self.count), dtype=torch.float32,
                         device=p.device if self.capturable else "cpu"),
-                    "exp_avg": like(state["mu"][n], p),
-                    "exp_avg_sq": like(state["nu"][n], p)}
+                    "exp_avg": like(state["mu"][n], q),
+                    "exp_avg_sq": like(state["nu"][n], q)}
         if self.acc is not None:
             acc = state.get("acc_grads")
-            for n, a in zip(self.names, self.acc):
-                a.copy_(like(acc[n], a)) if acc else a.zero_()
+            for n, a, q in zip(self.names, self.acc, self.placed):
+                a.copy_(like(acc[n], q)) if acc else a.zero_()
         self.loads += 1
 
 
@@ -485,13 +508,15 @@ class Stage1Trainer:
         self.buckets = [tuple(b) for b in config.get(
             "data.buckets", [[64, 256], [128, 512], [256, 1000]])]
         self.param_names = [n for n, _ in self.model.named_parameters()]
-        self._params = [p for _, p in self.model.named_parameters()]
         # one CUDA graph per data bucket for the whole step (forward,
-        # backward, clip, AdamW), as JAX jits it; eager on the CPU and on
-        # a mesh
+        # backward, clip, AdamW), as JAX jits it, on an NCCL mesh too;
+        # eager on the CPU and on a gloo mesh
         self._graphs = step_graphs(self.device, self.mesh)
         self.optimizer = Optimizer(tcfg, self.model.named_parameters(),
                                    capturable=self._graphs is not None)
+        # what the forward runs on and the gradient is taken by: the
+        # optimizer's tensors (on a mesh the local ones)
+        self._params = self.optimizer.params
         self._graph_loads = self.optimizer.loads
         self._noise = torch.Generator(device=self.device)
         for m in self.model.modules():
@@ -591,8 +616,7 @@ class Stage1Trainer:
                 batch["durations"])
         kwargs = {"max_frames": batch["mel"].shape[1]}
         if self.bf16 or self.mesh is not None:
-            params = {n: pmesh.local(p)
-                      for n, p in self.model.named_parameters()}
+            params = dict(zip(self.param_names, self._params))
             out = torch.func.functional_call(
                 self.model, cast_params_bf16(params) if self.bf16 else params,
                 args, kwargs)
@@ -619,7 +643,7 @@ class Stage1Trainer:
         if self.mesh is not None:
             losses = pmesh.mean_dict_over(losses, self.mesh)
             pmesh.mean_over(grads, self.mesh)
-        losses["grad_norm"] = global_norm(grads)
+        losses["grad_norm"] = self.optimizer.norm(grads)
         return losses, grads
 
     def _train_step(self, batch: Dict[str, torch.Tensor]
@@ -634,7 +658,7 @@ class Stage1Trainer:
 
     def _graphed(self) -> bool:
         """Whether a step (and an eval step) is one graph replay: on CUDA
-        without a mesh and outside ``disable_graphs()``."""
+        without a mesh or on an NCCL mesh, outside ``disable_graphs()``."""
         return self._graphs is not None and self._graphs.active()
 
     #: the batch entries a step reads, in the graph's argument order
@@ -678,6 +702,8 @@ class Stage1Trainer:
             try:
                 return self._graph_step(batch)
             except torch.cuda.OutOfMemoryError:
+                if self.mesh is not None:  # the other ranks wait in a
+                    raise                  # collective
                 # a replay allocates nothing: this was a bucket's first
                 # call (its eager run, which may have written some
                 # tensors, or its capture); restore all
@@ -718,20 +744,21 @@ class Stage1Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """The eval-mode losses of a batch: a replay of the bucket's eval
         graph where ``_graphed``, else eager."""
+        tensors = [batch[k] for k in self._STEP_KEYS]
         if self._graphed():
-            return self._graphs(("eval",), self._eval_fn,
-                                *(batch[k] for k in self._STEP_KEYS))
-        losses = self._eval_fn(*(batch[k] for k in self._STEP_KEYS))
-        if self.mesh is not None:
-            losses = pmesh.mean_dict_over(losses, self.mesh)
-        return losses
+            return self._graphs(("eval",), self._eval_fn, *tensors)
+        return self._eval_fn(*tensors)
 
     def _eval_fn(self, *tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The eval-mode losses (averaged over 'data' on a mesh): what an
+        eval graph holds."""
         self.model.eval()
         try:
-            return self._loss_fn(dict(zip(self._STEP_KEYS, tensors)))[1]
+            losses = self._loss_fn(dict(zip(self._STEP_KEYS, tensors)))[1]
         finally:
             self.model.train()
+        return (losses if self.mesh is None
+                else pmesh.mean_dict_over(losses, self.mesh))
 
     # -- loop --------------------------------------------------------------
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -47,7 +47,8 @@ arithmetic:
   ``max_loss_blowups`` times; non-finite weights are never checkpointed;
 - **CUDA graphs** (``utils/graphs.py``), the counterparts of JAX's jitted
   ``_gd_step``/``_gd_step_cached``, ``_d_step``/``_g_step`` and
-  ``_val_fwd``: on CUDA without a mesh a step is one graph replay per
+  ``_val_fwd``: on CUDA (without a mesh, or on an NCCL mesh, where the
+  graph holds the collectives) a step is one graph replay per
   (bucket, mode), the mode being fused or D or G, host or device-cached
   batch, and under accumulation each optimizer's branch (accumulate, or
   accumulate and apply). The graph holds the window cut, both losses and
@@ -57,8 +58,9 @@ arithmetic:
   first step runs eagerly and captures; an OOM there restores the last
   snapshot; an optimizer state load (restore, resume, a blow-up rewind)
   drops the graphs. Validation's forward is one graph per bucket with the
-  scored weights as its inputs. On the CPU, on a mesh and inside
-  ``disable_graphs()`` all of it runs eagerly.
+  scored weights as its inputs (on a mesh rank 0's alone, which validates).
+  On the CPU, on a gloo mesh and inside ``disable_graphs()`` all of it runs
+  eagerly.
 
 A checkpoint holds ``{"generator", "g_opt_state", "discriminator",
 "d_opt_state", "step"}`` and ``generator_ema``; ``load_for_inference`` and
@@ -72,7 +74,9 @@ spectral norm forces ``native``.
 On a ('data', 'model') mesh (``mesh=``, or ``system.mesh`` under
 ``torchrun``) the generator is placed by the TP rules and the
 discriminator, which no rule matches, is replicated, as in JAX; every
-weight, optimizer moment and EMA shadow is a DTensor. Each rank prepares
+weight is a DTensor, and the forwards, both optimizers and the EMA run on
+the local tensors (a checkpoint places each moment and shadow as its
+weight before the gather). Each rank prepares
 the same global batch (windows and noise drawn over all its rows) and
 keeps its rows; gradients and losses are averaged over 'data', so the
 guards see the global discriminator loss. Validation gathers the scored
@@ -271,21 +275,22 @@ class Stage2Trainer:
                 partition.shard_module(net, self.mesh)
 
         opt_cfg = Config(_OPT_DEFAULTS).merge(tcfg)
-        self.g_names = [n for n, _ in self.model.named_parameters()]
-        self.g_params = [p for _, p in self.model.named_parameters()]
-        self.d_names = [n for n, _ in self.discriminator.named_parameters()]
-        self.d_params = [p for _, p in self.discriminator.named_parameters()]
         # the step, validation's forward: one CUDA graph per bucket key
-        # (None on the CPU and on a mesh, which run eagerly)
+        # (None on the CPU and on a gloo mesh, which run eagerly)
         self._graphs = step_graphs(self.device, self.mesh)
         capturable = self._graphs is not None
         self.g_opt = Optimizer(opt_cfg, self.model.named_parameters(),
                                capturable=capturable)
         self.d_opt = Optimizer(opt_cfg, self.discriminator.named_parameters(),
                                capturable=capturable)
+        # what the forwards run on and the gradients are taken by: the
+        # optimizers' tensors (on a mesh the local ones)
+        self.g_names, self.g_params = self.g_opt.names, self.g_opt.params
+        self.d_names, self.d_params = self.d_opt.names, self.d_opt.params
         self._graph_loads = (self.g_opt.loads, self.d_opt.loads)
         self.g_updates = 0
         self.d_updates = 0
+        # the generator's EMA shadow, on the local tensors as the optimizer
         self.ema: Optional[List[torch.Tensor]] = (
             [p.detach().clone() for p in self.g_params]
             if self.ema_decay > 0 else None)
@@ -343,8 +348,14 @@ class Stage2Trainer:
         score: the EMA shadow when on, else the live weights (gathered to
         the global tensors on a mesh)."""
         params = self.ema if self.ema is not None else self.g_params
-        return _full({n: p.detach()
-                      for n, p in zip(self.g_names, params)}, self.mesh)
+        return _full(self._placed(params), self.mesh)
+
+    def _placed(self, tensors: Sequence[torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Tensors of the generator's local shapes by name, each placed as
+        its parameter (a DTensor on a mesh, for ``_full``'s gather)."""
+        return {n: partition.place_like(t.detach(), q) for n, t, q in zip(
+            self.g_names, tensors, self.g_opt.placed)}
 
     def _host_state(self) -> Dict[str, Any]:
         state = {"generator": self.model.state_dict(),
@@ -353,7 +364,7 @@ class Stage2Trainer:
                  "d_opt_state": self.d_opt.state_dict(),
                  "step": self.step}
         if self.ema is not None:
-            state["generator_ema"] = dict(zip(self.g_names, self.ema))
+            state["generator_ema"] = self._placed(self.ema)
         return _to_host(_full(state, self.mesh))
 
     @torch.no_grad()
@@ -366,9 +377,9 @@ class Stage2Trainer:
         self.g_opt.load_state_dict(state["g_opt_state"])
         self.d_opt.load_state_dict(state["d_opt_state"])
         if self.ema is not None:
-            for n, e in zip(self.g_names, self.ema):
+            for n, e, q in zip(self.g_names, self.ema, self.g_opt.placed):
                 e.copy_(ema[n] if self.mesh is None
-                        else partition.shard_like(ema[n], e))
+                        else partition.shard_like(ema[n], q).to_local())
 
     def _snapshot(self) -> Tuple:
         return (self._host_state(), self.step, self.g_updates,
@@ -416,9 +427,9 @@ class Stage2Trainer:
     @staticmethod
     def _live(names: Sequence[str], params: Sequence[torch.Tensor],
               detach: bool = False) -> Dict[str, torch.Tensor]:
-        """The tensors a forward runs on: each parameter, or on a mesh its
-        local tensor (differentiable unless ``detach``)."""
-        return {n: pmesh.local(p.detach() if detach else p)
+        """The tensors a forward runs on by name (differentiable unless
+        ``detach``)."""
+        return {n: p.detach() if detach else p
                 for n, p in zip(names, params)}
 
     def _acoustic_and_segment(self, g_params: Dict[str, torch.Tensor],
@@ -688,7 +699,8 @@ class Stage2Trainer:
 
     def _graphed(self) -> bool:
         """Whether a step (and validation's forward) is one graph replay:
-        on CUDA without a mesh and outside ``disable_graphs()``."""
+        on CUDA without a mesh or on an NCCL mesh, outside
+        ``disable_graphs()``."""
         return self._graphs is not None and self._graphs.active()
 
     def _drop_stale_graphs(self) -> None:

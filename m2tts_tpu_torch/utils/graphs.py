@@ -19,20 +19,33 @@ key with ``torch.cuda.CUDAGraph`` and replays it after that:
 - a graph reads nothing from a Python scalar: anything a replay depends on
   is a tensor argument (a scalar would be baked into the capture);
 - a replay adds to the kernel wrappers' launch counters (``COUNTERS``) the
-  launches its capture recorded; the capture itself counts none.
+  launches its capture recorded; the capture itself counts none;
+- Python's cyclic garbage collector is off while a capture is under way:
+  a cycle it frees may hold another runner's graph, whose destruction
+  inside the capture would invalidate it.
 
 Graphs share the pool safely in any replay order because every graph's
 outputs are read (cloned) right after its own replay, under the lock, and
 its inputs live outside the pool.
 
-On the CPU, inside ``disable_graphs()`` and while another capture is under
-way the function runs eagerly. On CUDA a failed capture raises; nothing
-falls back to eager.
+On an NCCL mesh (``step_graphs``, the SPMD ``Synthesizer``) a graph holds
+the collectives of the function it captures: a key's first call runs them
+eagerly on the side stream (which creates the communicators) before the
+capture; every rank captures a key at the same call and replays the same
+keys in the same order, as the ranks of a mesh call everything alike; and
+``capture_error_mode="thread_local"`` leaves the process group's watchdog
+thread free to query its events while a capture is under way. Gloo's
+collectives cannot be captured: a gloo mesh runs eagerly.
+
+On the CPU, on a gloo mesh, inside ``disable_graphs()`` and while another
+capture is under way the function runs eagerly. On CUDA a failed capture
+raises; nothing falls back to eager.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import sys
 import threading
 from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
@@ -47,6 +60,8 @@ COUNTERS = (("m2tts_tpu_torch.ops.cuda.vocoder", "LAUNCHES_TC"),
 
 _MU = threading.Lock()
 _DISABLED = 0  # depth of open disable_graphs() contexts
+_CAPTURES = 0  # captures under way, in every thread
+_GC_WAS_ENABLED = True
 
 
 @contextlib.contextmanager
@@ -66,6 +81,26 @@ def disable_graphs() -> Iterator[None]:
 
 def graphs_enabled() -> bool:
     return _DISABLED == 0
+
+
+@contextlib.contextmanager
+def _gc_paused() -> Iterator[None]:
+    """Python's cyclic collector off while any capture is under way: a
+    cycle it frees may hold another runner's graph, and destroying a graph
+    inside a capture invalidates the capture."""
+    global _CAPTURES, _GC_WAS_ENABLED
+    with _MU:
+        if _CAPTURES == 0:
+            _GC_WAS_ENABLED = gc.isenabled()
+            gc.disable()
+        _CAPTURES += 1
+    try:
+        yield
+    finally:
+        with _MU:
+            _CAPTURES -= 1
+            if _CAPTURES == 0 and _GC_WAS_ENABLED:
+                gc.enable()
 
 
 def _counts() -> Tuple[int, ...]:
@@ -176,32 +211,40 @@ class GraphRunner:
             for gen in generators:
                 graph.register_generator_state(gen)
             before = _counts()
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
-            try:
-                outputs = fn(*inputs)
-            except BaseException:
-                # end the capture; an invalidated capture's capture_end
-                # raises and leaves its pool recording, so later graphs
-                # take a new pool (the failed graph is kept: the
-                # allocator's record of that pool refers to it)
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                self._failed.append(graph)
-                self._pool = None
-                raise
-            finally:
-                launches = tuple(b - a for a, b in zip(before, _counts()))
-                _add_counts([-d for d in launches])  # capture launches none
-            graph.capture_end()
+            with _gc_paused():
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    outputs = fn(*inputs)
+                except BaseException:
+                    # end the capture; an invalidated capture's capture_end
+                    # raises and leaves its pool recording, so later graphs
+                    # take a new pool (the failed graph is kept: the
+                    # allocator's record of that pool refers to it)
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    self._failed.append(graph)
+                    self._pool = None
+                    raise
+                finally:
+                    launches = tuple(b - a
+                                     for a, b in zip(before, _counts()))
+                    _add_counts([-d for d in launches])  # a capture: none
+                graph.capture_end()
         current.wait_stream(side)
         self._graphs[full_key] = _Graph(graph, inputs, outputs, launches)
         return result
 
 
 def step_graphs(device, mesh) -> Optional[GraphRunner]:
-    """A trainer's runner for its step and eval graphs: one on CUDA without
-    a mesh, None on the CPU and on a mesh (whose steps stay eager)."""
+    """The runner of an owner that may sit on a mesh (a trainer's step and
+    eval graphs, the ``Synthesizer``'s buckets): one on CUDA, without a
+    mesh or on a mesh whose process groups are NCCL's (the graphs then hold
+    its collectives); None on the CPU and on a gloo mesh, which run
+    eagerly."""
+    from m2tts_tpu_torch.parallel.mesh import is_nccl
+
     device = torch.device(device)
-    return (GraphRunner(device) if device.type == "cuda" and mesh is None
-            else None)
+    if device.type != "cuda" or (mesh is not None and not is_nccl(mesh)):
+        return None
+    return GraphRunner(device)

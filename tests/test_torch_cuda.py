@@ -19,13 +19,15 @@ loaded on the CPU against a CPU Synthesizer of the same weights, ±1 LSB;
 the synthesize CLI's WAV against ``Synthesizer`` through the kernel,
 0 LSB), and a mesh on the card (an NCCL world of one rank: three stage-1
 steps on its (1, 1) mesh against the same steps without a mesh, and a
-batch through the kernel on the mesh against ``mesh=None``, 0 LSB), and
-the CUDA graphs (``utils/graphs.py``) against ``disable_graphs()`` eager:
+batch through the kernel on the mesh against ``mesh=None``, 0 LSB; on the
+same mesh six stage-1 steps and a batch as graph replays against eager),
+and the CUDA graphs (``utils/graphs.py``) against ``disable_graphs()`` eager:
 the Synthesizer at three duration scales, two text sets, int16 and μ-law
 with the mel (equal, and the replays' counted launches equal eager's),
 ``synthesize_stream`` of three same-bucket batches (each result survives
-the next replay), ``swap_params`` against a fresh Synthesizer, a stream
-chunk by chunk, six f32 stage-1 steps over two buckets under
+the next replay), ``swap_params`` in both dtypes capturing no new graph
+and replaying a fresh Synthesizer's PCM, a stream chunk by chunk, the
+short path as one graph per length, six f32 stage-1 steps over two buckets under
 deterministic algorithms (rtol 1e-6), and a capture that fails (a host
 sync) raising and leaving the runner usable; and the training graphs
 against eager under deterministic algorithms (bitwise, or ``NONDET_REL``
@@ -729,17 +731,25 @@ def test_synthesize_stream_results_survive_the_next_replay():
 
 
 @needs_cuda
-def test_swap_params_drops_the_graphs():
-    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_swap_params_keeps_the_graphs(cd):
+    """A swap writes the weights into the tensors the graphs read (the
+    model's, the bf16 copy's, the packed weights and the kernels'
+    operands): no graph is captured after it, and the replays give a fresh
+    Synthesizer's PCM (0 LSB); swapping back gives the first weights'."""
+    s = Synthesizer(_tiny_model(), compute_dtype=cd, **GRAPH_BUCKETS)
     texts = GRAPH_TEXTS[0]
-    s.synthesize_batch(texts, 12.0)
-    s.synthesize_batch(texts, 12.0)
+    s.synthesize_batch(texts, 12.0)  # eager + capture
+    first = _synth_out(s, texts, 12.0)  # a replay
+    graphs = s.graph_stats()["graphs"]
     other = _tiny_model(seed=1)
     s.swap_params(other.state_dict())
-    assert s.graph_stats()["graphs"] == 0
-    fresh = Synthesizer(other, **GRAPH_BUCKETS)
-    for _ in range(2):  # eager + capture, then a replay
+    fresh = Synthesizer(other, compute_dtype=cd, **GRAPH_BUCKETS)
+    for _ in range(2):
         _same_out(_synth_out(s, texts, 12.0), _synth_out(fresh, texts, 12.0))
+    s.swap_params(_tiny_model().state_dict())
+    _same_out(_synth_out(s, texts, 12.0), first)
+    assert s.graph_stats()["graphs"] == graphs
 
 
 @needs_cuda
@@ -758,6 +768,48 @@ def test_streaming_graphs_equal_eager(cd):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
     assert len(ss.graphs) == 1 and len(ss.vocoder.graphs) == 1
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_short_path_is_one_graph_per_length(cd):
+    """Three lengths no longer than the window, each streamed twice: three
+    graphs in the vocoder's runner (a first call, then a replay), each
+    output bitwise the eager one."""
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    sv = StreamingVocoder(_tiny_model(), chunk_frames=32, compute_dtype=cd)
+    gen = torch.Generator().manual_seed(5)
+    mels = [torch.randn((T, 16), generator=gen).cuda() for T in (7, 30, 40)]
+    with disable_graphs():
+        want = [sv.synthesize(m) for m in mels]
+    for _ in range(2):
+        for m, w in zip(mels, want):
+            np.testing.assert_array_equal(sv.synthesize(m), w)
+    assert sv.graphs.stats() == {"graphs": 3, "replays": 3}
+
+
+@needs_cuda
+def test_capture_runs_with_the_collector_paused():
+    """A key's first call runs its function eagerly with Python's cyclic
+    collector on, then captures it with the collector off (a cycle freed
+    inside a capture may hold another runner's graph, whose destruction
+    would invalidate the capture); a replay runs no Python."""
+    import gc
+
+    from m2tts_tpu_torch.utils.graphs import GraphRunner
+
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    runner = GraphRunner("cuda")
+    x = torch.ones(4, device="cuda")
+    for _ in range(2):
+        torch.testing.assert_close(runner(("k",), fn, x), x * 2)
+    assert seen == [True, False] and gc.isenabled()
 
 
 @needs_cuda
@@ -800,6 +852,57 @@ def deterministic(monkeypatch):
     torch.use_deterministic_algorithms(True)
     yield
     torch.use_deterministic_algorithms(False)
+
+
+def _nccl_graph_world(out):
+    """One NCCL rank, deterministic algorithms: ``_graph_trainer``'s six
+    steps on the (1, 1) mesh eagerly and as graphs (which hold the mesh's
+    all-reduces), and a batch on a mesh Synthesizer eagerly and replayed."""
+    from m2tts_tpu_torch.parallel.mesh import make_mesh
+    from m2tts_tpu_torch.utils.graphs import disable_graphs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    res = {}
+    for name, graphed in (("eager", False), ("graph", True)):
+        t, losses = _graph_trainer(Path(out) / name, graphed)
+        assert t.mesh is not None and t._graphs is not None
+        res[name] = (losses, {k: v.cpu() for k, v in
+                              t._host_state_copy()["params"].items()},
+                     t._graphs.stats() if graphed else None)
+        t.close()
+    synth = Synthesizer(_tiny_model(), mesh=make_mesh(device_type="cuda"),
+                        **MESH_BUCKETS)
+    with disable_graphs():
+        res["synth_eager"] = _synth_out(synth, MESH_TEXTS, 12.0)
+    res["synth_graph"] = [_synth_out(synth, MESH_TEXTS, 12.0)
+                          for _ in range(2)]
+    res["synth_stats"] = synth.graph_stats()
+    return res
+
+
+@needs_cuda
+def test_nccl_mesh_graphs_equal_eager(tmp_path, no_tf32, deterministic):
+    """On an NCCL mesh (one rank) the stage-1 step and the Synthesizer are
+    graph replays, held to their eager runs as without a mesh."""
+    from m2tts_tpu_torch.parallel.mesh import spawn_world
+
+    res = spawn_world(_nccl_graph_world, 1, args=(str(tmp_path / "w"),),
+                      backend="nccl", device="cuda",
+                      workdir=str(tmp_path))[0]
+    (le, pe, _), (lg, pg, stats) = res["eager"], res["graph"]
+    # each bucket's first step captures, the others replay
+    assert stats["graphs"] >= 1 and stats["graphs"] + stats["replays"] == 6
+    for a, b in zip(le, lg):
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-6, err_msg=k)
+    for k, v in pe.items():
+        torch.testing.assert_close(pg[k], v, atol=1e-6, rtol=1e-6, msg=k)
+    for got in res["synth_graph"]:
+        _same_out(got, res["synth_eager"])
+    assert res["synth_stats"]["graphs"] == 2  # the probe, the synthesis
+    assert res["synth_stats"]["replays"] == 2
 
 
 @needs_cuda

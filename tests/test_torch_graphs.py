@@ -9,14 +9,19 @@ against the JAX package, at a tiny size:
   LSB of JAX's ``Synthesizer``;
 - ``synthesize_stream`` over three same-bucket batches equal to three
   separate calls, and ``swap_params`` equal to a fresh Synthesizer of the
-  new weights;
+  new weights; the swap writes in place (every tensor a graph reads, the
+  model's, the bf16 copy's and the packed vocoder weights', keeps its
+  storage) in f32 and bf16, its f32 PCM within ±1 LSB of JAX's
+  ``swap_params``; the kernels' operands refreshed in place equal ones
+  built from the new weights;
 - the stage-1 optimizer with the one global norm the step computes passed
   to the clip, 5 steps against optax's ``make_optimizer`` (warmup-cosine
   lr, the clip active on at least one step): params and moments within
   1e-6, the stage-1 optimizer bars;
 - the runner itself on the CPU (eager, arguments moved to its device),
-  ``disable_graphs`` nesting, the launch-counter bookkeeping a replay
-  does, and the trainer's and streamers' use of it.
+  ``disable_graphs`` nesting, the collector paused during captures, the
+  launch-counter bookkeeping a replay does, and the trainer's and streamers' use of it (the short path under
+  a key of its own, one entry per length).
 
 The CUDA cases of the same checks (replay against ``disable_graphs()``,
 a failed capture that raises) are in ``tests/test_torch_cuda.py``.
@@ -138,6 +143,86 @@ def test_swap_params_equals_a_fresh_synthesizer():
     assert ts.graph_stats()["graphs"] == 0  # no graph on the CPU
 
 
+def _nest(tree):
+    """Every tensor of a nest of dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _nest(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _nest(v)]
+    return []
+
+
+def _graph_storage(ts):
+    """The data pointers of every tensor a Synthesizer's graphs read: the
+    model's, its bf16 copy's and the packed vocoder weights'."""
+    models = [ts.model] + ([ts._bf16_model] if ts._bf16_model else [])
+    return ([t.data_ptr() for m in models for t in m.state_dict().values()]
+            + [t.data_ptr() for t in _nest(ts._vocode.packed)])
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_swap_params_writes_in_place(cd):
+    """After a first call (which packs the vocoder weights and makes the
+    bf16 copy), a swap keeps every tensor's storage and serves what a fresh
+    Synthesizer on the new weights serves; in f32 also what JAX's
+    ``swap_params`` serves (±1 LSB)."""
+    jm, params0 = _flax_params(0)
+    _, params1 = _flax_params(1)
+    kw = dict(device="cpu", vocoder_backend="mm", compute_dtype=cd,
+              **BUCKETS)
+    ts = Synthesizer(_port_model(params0), **kw)
+    before = ts.synthesize_batch(TEXT_SETS[0], BASE)
+    assert (ts._bf16_model is not None) == (cd == "bf16")
+    storage = _graph_storage(ts)
+    ts.swap_params(from_flax(params1))
+    assert _graph_storage(ts) == storage
+    after = ts.synthesize_batch(TEXT_SETS[0], BASE)
+    assert any(not np.array_equal(a["audio_pcm"], b["audio_pcm"])
+               for a, b in zip(after, before))
+    fresh = Synthesizer(_port_model(params1), **kw)
+    for a, f in zip(after, fresh.synthesize_batch(TEXT_SETS[0], BASE)):
+        assert a["frames"] == f["frames"]
+        np.testing.assert_array_equal(a["audio_pcm"], f["audio_pcm"])
+    if cd == "f32":
+        js = JaxSynthesizer(jm, params0, **BUCKETS)
+        js.swap_params(params1)
+        for a, j in zip(after, js.synthesize_batch(TEXT_SETS[0], BASE)):
+            assert a["frames"] == j["frames"]
+            _assert_pcm_close(a["audio_pcm"], j["audio_pcm"])
+
+
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_kernel_operands_refresh_in_place(cd):
+    """``refresh_operands`` rewrites the tensor-core operands cached for a
+    packed weight set (the chunk stream, offsets, biases, the output conv)
+    from its new weights into the same tensors: equal to operands built
+    afresh, at the same addresses."""
+    from m2tts_tpu_torch.ops.cuda import vocoder as cuda_vocoder
+    from m2tts_tpu_torch.ops.vocoder_mm import pack_vocoder_weights
+    from m2tts_tpu_torch.serving.pipeline import _copy_into
+
+    cpu = torch.device("cpu")
+    m0, m1 = (_port_model(_flax_params(s)[1]) for s in (0, 1))
+    packed = pack_vocoder_weights(m0.vocoder, cd)
+    ops = cuda_vocoder._tc_operands(packed, KW["mel_channels"], cpu, cd)
+    ptrs = [t.data_ptr() for _, o in ops for t in _nest(o)]
+    streams = [o["w"].clone() for _, o in ops]
+    _copy_into(packed, pack_vocoder_weights(m1.vocoder, cd))
+    cuda_vocoder.refresh_operands(packed)
+    assert [t.data_ptr() for _, o in ops for t in _nest(o)] == ptrs
+    want = cuda_vocoder._tc_operands(pack_vocoder_weights(m1.vocoder, cd),
+                                     KW["mel_channels"], cpu, cd)
+    assert len(ops) == len(want)
+    for (_, got), (_, new) in zip(ops, want):
+        assert set(got) == set(new)
+        for k, v in new.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(got[k], v), k
+    assert not any(torch.equal(o["w"], w) for (_, o), w in zip(ops, streams))
+
+
 def test_optimizer_with_one_global_norm_matches_optax():
     cfg = {"learning_rate": 1e-2, "warmup_steps": 2, "max_steps": 8,
            "lr_scheduler": "cosine", "gradient_clip_norm": 2.5,
@@ -229,6 +314,28 @@ def test_disable_graphs_nests():
     assert graphs.graphs_enabled()
 
 
+def test_gc_is_paused_while_capturing():
+    """Python's cyclic collector stays off from the first capture's start
+    to the last one's end (nested as captures in two threads would be),
+    then returns to the state it had before."""
+    import gc
+
+    assert gc.isenabled()
+    with graphs._gc_paused():
+        assert not gc.isenabled()
+        with graphs._gc_paused():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._gc_paused():
+            pass
+        assert not gc.isenabled()  # off before, off after
+    finally:
+        gc.enable()
+
+
 def test_a_replay_adds_its_captured_launches(monkeypatch):
     from m2tts_tpu_torch.ops.cuda import build
     from m2tts_tpu_torch.ops.cuda import vocoder as cuda_vocoder
@@ -297,3 +404,36 @@ def test_trainer_and_streamers_stay_eager_on_the_cpu(tmp_path):
     n0 = ss.vocoder.chunk_frames * ss.vocoder.upsample
     torch.testing.assert_close(head[:n0], chunk0[0, :n0], rtol=0, atol=0)
     assert int(head[n0]) == int(total[0])
+
+
+class _KeyRunner:
+    """A stand-in for an active runner: records each call's key and
+    shapes, and runs the function as a graph's first call does."""
+
+    def __init__(self):
+        self.keys = []
+
+    def __call__(self, key, fn, *args, generators=()):
+        self.keys.append((key, tuple(tuple(a.shape) for a in args)))
+        return fn(*args)
+
+
+def test_short_path_runs_under_a_key_per_length():
+    """The streaming short path goes through the chunk graphs' runner under
+    its own key, one graph a length (the runner keys by shape): what it
+    returns there equals the whole mel vocoded in one call."""
+    _, params = _flax_params(0)
+    sv = StreamingSynthesizer(_port_model(params), chunk_frames=16,
+                              max_frames=128, text_bucket=32,
+                              device="cpu").vocoder
+    sv.graphs = _KeyRunner()
+    mel = torch.randn(3, sv._window, KW["mel_channels"],
+                      generator=torch.Generator().manual_seed(2))
+    lengths = (5, sv._window, 5, 11)
+    with torch.inference_mode():
+        for i, T in enumerate(lengths):
+            got = np.concatenate(list(sv.stream(mel[i % 3, :T])))
+            want = sv._full(mel[i % 3, :T][None])[0].numpy()
+            np.testing.assert_array_equal(got, want)
+    assert sv.graphs.keys == [(("short",), ((1, T, KW["mel_channels"]),))
+                              for T in lengths]

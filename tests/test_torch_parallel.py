@@ -23,6 +23,11 @@ devices. Sizes as ``tests/test_tp.py``: 32-d, one layer each, two heads,
   against the unsharded one;
 - a (1, 2) run's checkpoint resumes in a single-device trainer to the
   gathered weights and serves at 0 LSB from them;
+- on (1, 2) under accumulation (k = 2, three micro-steps) every optimizer
+  state tensor (Adam's moments and step counts, the accumulator) and the
+  tensors the optimizer updates are plain tensors sharing the DTensor
+  parameters' storage, and ``state_dict()`` gathers to the global moments
+  and accumulator of the same steps on one device;
 - one stage-2 step at (2, 1) against the single-device step;
 - ``dryrun_multichip(2)`` on the CPU; ``get_device_info`` reports the rank
   and world size.
@@ -143,6 +148,25 @@ def _stage1_world(out, weights, batches):
                    torch.linalg.vector_norm(torch.cat(
                        [v.reshape(-1) for v in full.values()])).item())
 
+    # (1, 2) under accumulation: what the optimizer holds, what it gathers to
+    t = Stage1Trainer(Config(tiny_config(f"{out}/tp_acc", 0.0, MESHES["tp"],
+                                         gradient_accumulation_steps=2)),
+                      dataset=DummyDataset(**DS_KW), device="cpu")
+    _steps(t, weights, batches)
+    opt = t.optimizer
+    state = [v for st in opt.adamw.state.values() for v in st.values()]
+    shares = [p.data_ptr() == q.to_local().data_ptr()
+              for p, q in zip(opt.params, opt.placed)]
+    res["tp_acc"] = {
+        "plain": [type(x) is torch.Tensor or type(x) is torch.nn.Parameter
+                  for x in state + opt.acc + opt.params],
+        "n_state": len(state), "shares_storage": all(shares),
+        "sharded": sum(isinstance(p, partition.DTensor) and p.placements[
+            0].is_shard() for p in opt.placed),
+        "gathered": partition.full_tree({k: opt.state_dict()[k] for k in (
+            "mu", "nu", "acc_grads")})}
+    t.close()
+
     # a (1, 2) run that checkpoints; its gathered in-memory weights
     cfg = tiny_config(f"{out}/ckpt_run", 0.1, MESHES["tp"], max_steps=2,
                       save_every=2)
@@ -232,6 +256,13 @@ def stage1(tmp_path_factory):
                           dataset=DummyDataset(**DS_KW), device="cpu")
         plain[dropout] = _steps(t, weights, batches)
         t.close()
+    t = Stage1Trainer(Config(tiny_config(f"{tmp}/plain_acc", 0.0,
+                                         gradient_accumulation_steps=2)),
+                      dataset=DummyDataset(**DS_KW), device="cpu")
+    _steps(t, weights, batches)
+    sd = t.optimizer.state_dict()
+    plain["acc"] = {k: sd[k] for k in ("mu", "nu", "acc_grads")}
+    t.close()
     world = pmesh.spawn_world(_stage1_world, 2,
                               args=(str(tmp / "world"), weights, batches),
                               workdir=str(tmp))
@@ -394,6 +425,21 @@ def test_tp_checkpoint_resumes_and_serves_on_one_device(stage1, tmp_path):
                     ref.synthesize_batch(texts, duration_scale=12.0)):
         assert a["frames"] == b["frames"] > 0
         np.testing.assert_array_equal(a["audio_pcm"], b["audio_pcm"])
+
+
+def test_tp_optimizer_state_is_local_and_gathers_to_one_device(stage1):
+    """(1, 2), k = 2, three micro-steps: plain tensors in the optimizer,
+    sharing the parameters' storage; the moments and the accumulator
+    gathered equal one device's within the weights' bar."""
+    want = stage1["plain"]["acc"]
+    for rank in stage1["world"]:
+        got = rank["tp_acc"]
+        assert all(got["plain"]) and got["n_state"] > 0
+        # five in each transformer layer: the encoder's and the decoder's
+        assert got["shares_storage"] and got["sharded"] == 10
+        for key in ("mu", "nu", "acc_grads"):
+            assert want[key]
+            _assert_params(got["gathered"][key], want[key])
 
 
 # -- stage 2 and the dry run --------------------------------------------------

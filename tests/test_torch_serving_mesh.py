@@ -18,7 +18,14 @@ virtual CPU devices, on the same weights (the port's, by ``to_flax``):
   each answer equal to a single-device Synthesizer's; rank 0's HTTP server
   answers a ``/reload`` of another architecture with a 400, rank 1 outlives
   a call that fails on it alone, and the next request is served;
-- the vocoder kernel's wrapper refuses a DTensor.
+- the vocoder kernel's wrapper refuses a DTensor;
+- a gloo mesh runs no graph (``step_graphs`` and the Synthesizer's runner
+  are None; ``is_nccl`` is false);
+- ``swap_params`` on a mesh writes the new weights into the local tensors,
+  the bf16 copy and the packed vocoder weights in place (their storage
+  kept) on (2, 1) in f32 and (1, 2) in bf16, and serves what a fresh mesh
+  Synthesizer on the new weights serves (exactly), a single device's and,
+  in f32, JAX's mesh ``swap_params`` (±1 LSB).
 """
 
 import argparse
@@ -43,15 +50,48 @@ BUCKETS = dict(text_buckets=(32,), frame_buckets=(128,), batch_buckets=(4,))
 SCALE = 12.0  # random-init durations are ~0.3 frames; scale them up
 
 
-def weights():
-    return init_params(M2TTS(**KW), torch.Generator().manual_seed(0),
+def weights(seed=0):
+    return init_params(M2TTS(**KW), torch.Generator().manual_seed(seed),
                        "cpu").state_dict()
 
 
-def _synth(mesh=None, **kw):
+def _synth(mesh=None, seed=0, **kw):
     model = M2TTS(**KW)
-    model.load_state_dict(weights())
+    model.load_state_dict(weights(seed))
     return Synthesizer(model, device="cpu", mesh=mesh, **{**BUCKETS, **kw})
+
+
+def _nest(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _nest(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _nest(v)]
+    return []
+
+
+def _graph_storage(s):
+    """The data pointers of every tensor a Synthesizer's graphs read: the
+    model's (local) tensors, its bf16 copy's, the packed vocoder
+    weights'."""
+    models = [s.model] + ([s._bf16_model] if s._bf16_model else [])
+    return ([t.data_ptr() for m in models for t in m.state_dict().values()]
+            + [t.data_ptr() for t in _nest(s._vocode.packed)])
+
+
+def _swapped(mesh, compute_dtype):
+    """A mesh Synthesizer (``mm``) that served seed 0's weights, swapped to
+    seed 1's: (storage kept, its outputs, a fresh mesh Synthesizer's)."""
+    s = _synth(mesh, vocoder_backend="mm", compute_dtype=compute_dtype)
+    s.synthesize_batch(TEXTS, SCALE)
+    storage = _graph_storage(s)
+    s.swap_params(weights(1))
+    fresh = _synth(mesh, seed=1, vocoder_backend="mm",
+                   compute_dtype=compute_dtype)
+    return (_graph_storage(s) == storage,
+            _outputs(s.synthesize_batch(TEXTS, SCALE)),
+            _outputs(fresh.synthesize_batch(TEXTS, SCALE)))
 
 
 def _outputs(results):
@@ -86,6 +126,14 @@ def _serving_world():
     res["tp"] = _outputs(_synth(tp).synthesize_batch(TEXTS[:2], SCALE))
     res["tp_bf16"] = _outputs(_synth(tp, compute_dtype="bf16")
                               .synthesize_batch(TEXTS[:2], SCALE))
+
+    # a gloo mesh runs eagerly; weight swaps write in place
+    from m2tts_tpu_torch.utils.graphs import step_graphs
+
+    res["graphs"] = (pmesh.is_nccl(dp), step_graphs("cuda", dp),
+                     step_graphs("cpu", dp), _synth(dp)._graphs)
+    res["swap"] = {"dp_f32": _swapped(dp, "f32"),
+                   "tp_bf16": _swapped(tp, "bf16")}
 
     # a DTensor never reaches the kernel's pointers
     packed = pack_vocoder_weights(_synth().model.vocoder, "f32")
@@ -283,6 +331,48 @@ def test_data_parallel_server_survives_failed_calls(world):
 def test_kernel_wrapper_refuses_a_dtensor(world):
     for rank in world:
         assert "DTensor" in rank["dtensor"]
+
+
+def test_gloo_mesh_runs_no_graph(world):
+    for rank in world:
+        assert rank["graphs"] == (False, None, None, None)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_swapped():
+    """JAX's mesh Synthesizer on seed 0's weights, swapped to seed 1's."""
+    import jax
+
+    from m2tts_tpu.models import M2TTS as JaxM2TTS
+    from m2tts_tpu.parallel.mesh import make_mesh
+    from m2tts_tpu.serving.pipeline import Synthesizer as JaxSynthesizer
+    from m2tts_tpu_torch.utils.params import to_flax
+
+    def params(seed):
+        return jax.tree_util.tree_map(np.asarray, to_flax(weights(seed)))
+
+    js = JaxSynthesizer(JaxM2TTS(**KW), params(0), **BUCKETS,
+                        mesh=make_mesh(data=2, devices=jax.devices()[:2]))
+    js.swap_params(params(1))
+    return _outputs(js.synthesize_batch(TEXTS, SCALE))
+
+
+@pytest.mark.parametrize("layout", ["dp_f32", "tp_bf16"])
+def test_mesh_swap_params_writes_in_place(world, jax_mesh_swapped, layout):
+    single = _outputs(_synth(seed=1, vocoder_backend="mm",
+                             compute_dtype=layout[3:]).synthesize_batch(
+        TEXTS, SCALE))
+    for rank in world:
+        kept, got, fresh = rank["swap"][layout]
+        assert kept
+        _assert_same(got, fresh, lsb=0)
+        if layout == "dp_f32":
+            _assert_same(got, single)
+            _assert_same(got, jax_mesh_swapped)
+        else:  # bf16 as test_mesh_serving_with_model_axis_bf16 holds it
+            for (fa, pa), (fb, _) in zip(got, single):
+                assert abs(fa - fb) <= max(2, fb // 50) and fa > 0
+                assert pa.size == fa * 64 and np.any(pa)
 
 
 def test_server_data_parallel_needs_torchrun():

@@ -12,8 +12,11 @@ vocoder, batch 8):
 - D's fake and G's forward drawing the same dropout masks from their two
   generators (dropout 0.1): the two generator outputs of a fused step
   equal, and not equal to an eval-mode forward;
-- which paths are graphs: ``step_graphs`` is a runner on CUDA without a
-  mesh only; ``_graphed()`` is false on the CPU and under
+- which paths are graphs: ``step_graphs`` is a runner on CUDA, without a
+  mesh or on an NCCL mesh (``parallel.mesh.is_nccl``, stood in for here;
+  the gloo world of ``tests/test_torch_serving_mesh.py`` calls the real
+  one), and None on the CPU and on a gloo mesh; ``_graphed()`` is false on
+  the CPU and under
   ``disable_graphs()``, and, with a runner that is active as a CUDA one
   would be, true under accumulation and ``alternate_gd``;
 - through such a runner (``EagerRunner``: it runs the function on copies
@@ -222,12 +225,20 @@ def test_d_fake_and_g_forward_draw_the_same_masks(tmp_path, via):
 
 # -- which paths are graphs --------------------------------------------------
 
-def test_graphs_only_on_cuda_without_a_mesh(tmp_path):
+def test_graphs_only_on_cuda_without_a_mesh(tmp_path, monkeypatch):
+    from types import SimpleNamespace
+
+    from m2tts_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "is_nccl", lambda m: m.backend == "nccl")
+    gloo, nccl = (SimpleNamespace(backend=b) for b in ("gloo", "nccl"))
     assert graphs.step_graphs("cpu", None) is None
-    assert graphs.step_graphs("cuda", object()) is None  # a mesh
-    runner = graphs.step_graphs("cuda", None)
-    assert isinstance(runner, graphs.GraphRunner)
-    assert runner.device.type == "cuda"
+    assert graphs.step_graphs("cpu", nccl) is None
+    assert graphs.step_graphs("cuda", gloo) is None
+    for mesh in (None, nccl):
+        runner = graphs.step_graphs("cuda", mesh)
+        assert isinstance(runner, graphs.GraphRunner)
+        assert runner.device.type == "cuda"
     for kw in ({}, {"gradient_accumulation_steps": 2},
                {"alternate_gd": True}):
         t = _stage2(tmp_path, **kw)
