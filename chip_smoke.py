@@ -29,7 +29,17 @@ just before it and read just after:
   second capturing none (0 LSB from a fresh validator); 8 f32 stage-1
   steps at each bucket. Figures of both ways: audio-s/s and busy
   share at 64 × 512, first chunk and ms a chunk, bf16 ms a step and busy
-  share, and ``warmup(full=True)``'s capture seconds and pool memory;
+  share, and ``warmup(full=True)``'s capture seconds and pool memory.
+  Then (the ``host_probe`` path, whose launches are the host-probe
+  Synthesizer's own calls', each counted alone) the bf16 batch path with ``frame_probe='host'`` against ``'device'`` at
+  batch 1 and batch 64 × the 512-frame bucket as graph replays: 0 LSB
+  where both pick one bucket, no graph captured after the host path's
+  warmup, each call's host time split into G2P and packing, the probe
+  (the device round trip, or the CPU run), enqueueing the synthesis
+  replay, the PCM fetch and ``_collect``, beside the device path's
+  ``_throughput`` loop at batch 64; and the largest host − device
+  frame-count gap over the eight texts at four scales, with cuDNN's TF32
+  off (this run's setting) and on (a server's default);
 - ``streaming``: ``StreamingSynthesizer`` (64-frame chunks, 4-frame halo)
   in f32 (``vocoder_tc32.cu``) and bf16 (``vocoder_tc.cu``), each stream
   held against its mel vocoded whole by the kernel and against the plain
@@ -1262,8 +1272,208 @@ def cuda_graphs_phase(synth, synth_f32, scale: float, results: dict,
     if min(out["launches"][k] for k in ("fused_vocoder_tc",
                                         "fused_vocoder_tc32")) < 1:
         raise RuntimeError(f"cuda_graphs skipped a kernel: {out['launches']}")
+
+    # ---- frame_probe='host' against 'device': launches of the host-probe
+    # Synthesizer's own calls only
+    t_host = time.perf_counter()
+    out["host_probe"] = host_probe_figures(synth, scale, buckets, counters)
+    out["host_probe"]["seconds"] = time.perf_counter() - t_host
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
+    return out
+
+
+SPLIT_PARTS = ("g2p_pack", "probe", "enqueue", "fetch", "collect")
+HOST_PROBE_SCALES = (0.8, 1.0, 1.3, 3.0)  # times the calibrated scale
+
+
+@contextlib.contextmanager
+def split_timers(s):
+    """Host-clock seconds of the parts of ``s``'s batch calls while the
+    block runs: ``g2p_pack`` (``encode_packed_batch``, ``_to_device``),
+    ``probe`` (``_frame_totals``: the device probe's replay and blocking
+    fetch, or the CPU run), ``enqueue`` (``_run``: the synthesis replay's
+    launch), ``fetch`` (``_fetch``: waits for the device, copies the PCM)
+    and ``collect`` (``_collect`` without its fetch), summed."""
+    from m2tts_tpu_torch.serving import pipeline
+
+    acc = dict.fromkeys(SPLIT_PARTS + ("collect_and_fetch",), 0.0)
+
+    def timed(fn, part):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[part] += time.perf_counter() - t0
+        return run
+
+    encode = pipeline.encode_packed_batch
+    pipeline.encode_packed_batch = timed(encode, "g2p_pack")
+    for name, part in (("_to_device", "g2p_pack"), ("_frame_totals", "probe"),
+                       ("_run", "enqueue"), ("_fetch", "fetch"),
+                       ("_collect", "collect_and_fetch")):
+        setattr(s, name, timed(getattr(s, name), part))
+    try:
+        yield acc
+    finally:
+        pipeline.encode_packed_batch = encode
+        for name in ("_to_device", "_frame_totals", "_run", "_fetch",
+                     "_collect"):
+            delattr(s, name)
+        acc["collect"] = acc.pop("collect_and_fetch") - acc["fetch"]
+
+
+def _split_call(s, texts, scale: float):
+    """One ``synthesize_batch`` call: (its wall and host split in ms, its
+    results)."""
+    with split_timers(s) as acc:
+        t0 = time.perf_counter()
+        res = s.synthesize_batch(texts, scale)
+        wall = time.perf_counter() - t0
+    split = {k: acc[k] * 1e3 for k in SPLIT_PARTS}
+    return {"wall_ms": wall * 1e3, **split,
+            "other_ms": wall * 1e3 - sum(split.values()),
+            "audio_s": sum(r["frames"] for r in res) * s.upsample
+            / s.sample_rate}, res
+
+
+def _split_summary(runs) -> dict:
+    wall = sorted(r["wall_ms"] for r in runs)
+    return {"wall_ms_median": wall[len(wall) // 2],
+            "wall_ms_min": wall[0], "wall_ms_max": wall[-1],
+            "audio_s_per_s": sum(r["audio_s"] for r in runs)
+            / (sum(wall) / 1e3),
+            "split_ms_mean": {k: sum(r[k] for r in runs) / len(runs)
+                              for k in SPLIT_PARTS + ("other_ms",)}}
+
+
+def _frame_buckets(s_host, s_dev, texts, scale: float):
+    """(host counts, device counts, host bucket, device bucket) of a batch:
+    the routing each probe gives it (the host's with the guard)."""
+    from m2tts_tpu_torch.serving import pipeline
+
+    packed = pipeline.encode_packed_batch(
+        s_dev.text_processor, texts, s_dev.batch_buckets, s_dev.text_buckets)
+    n = len(texts)
+    host = s_host.predict_frames_host(packed[:, :-1], packed[:, -1], scale)
+    dev = s_dev.predict_frames(packed[:, :-1], packed[:, -1], scale)
+    return (host[:n], dev[:n],
+            pipeline._bucket_for(int(host[:n].max())
+                                 + pipeline.HOST_PROBE_GUARD,
+                                 s_dev.frame_buckets),
+            pipeline._bucket_for(int(dev[:n].max()), s_dev.frame_buckets))
+
+
+def host_probe_figures(synth, scale: float, buckets: dict,
+                       counters: Counters, iters: int = 5) -> dict:
+    """``frame_probe='host'`` against the main path's ``'device'``
+    Synthesizer (bf16, ``vocoder_tc.cu``) on its weights, as graph
+    replays: batch 1 (the longest text) and batch 64 × the 512-frame
+    bucket. After the host Synthesizer's ``warmup(full=True)`` its calls
+    must capture no graph; where both probes pick one bucket the PCM must
+    be equal (0 LSB). ``launches`` counts the host Synthesizer's own calls
+    only (the counters zeroed just before each, read just after) and must
+    be its calls × the vocoder's stages. Times: each call's wall and host
+    split (``split_timers``) in turns host, device, device, host, then the
+    device Synthesizer's ``_throughput`` loop on the batch-64 request.
+    Then the largest |host − device| frame count over the eight texts at
+    ``HOST_PROBE_SCALES``, with cuDNN's TF32 off and on (the device probe
+    of a fresh Synthesizer captured under each)."""
+    from m2tts_tpu_torch.serving import pipeline
+
+    sh = pipeline.Synthesizer(synth.model, frame_probe="host",
+                              vocoder_backend="auto", device=synth.device,
+                              **buckets)
+    if (sh.frame_probe, sh.vocoder_backend, sh.compute_dtype) != \
+            ("host", synth.vocoder_backend, synth.compute_dtype):
+        raise RuntimeError("host-probe Synthesizer resolved to "
+                           f"{sh.frame_probe}/{sh.vocoder_backend}/"
+                           f"{sh.compute_dtype}")
+    out = {"threads": torch.get_num_threads(), "cpu_count": os.cpu_count(),
+           "guard": pipeline.HOST_PROBE_GUARD}
+    t0 = time.perf_counter()
+    out["warmup_shapes"] = sh.warmup(full=True)
+    out["warmup_seconds"] = time.perf_counter() - t0
+    held = sh.graph_stats()["graphs"]
+
+    launches, n_calls = dict.fromkeys(Counters.NAMES, 0), 0
+
+    def host_call(fn, *args):  # one call of sh, counted on its own
+        nonlocal n_calls
+        counters.zero()
+        try:
+            return fn(*args)
+        finally:
+            for k, v in counters.read().items():
+                launches[k] += v
+            n_calls += 1
+
+    ids, lengths = packed_eval_texts(synth)
+    longest = int(np.argmax(synth.predict_frames(ids, lengths, scale)[
+        :len(EVAL_TEXTS)]))
+    requests = {"batch1": [EVAL_TEXTS[longest]],
+                "batch64": (EVAL_TEXTS * 8)[:64]}
+    routes, held_pcm = {}, {}
+    for name, texts in requests.items():
+        host, dev, hb, db = _frame_buckets(sh, synth, texts, scale)
+        routes[name] = {"host_bucket": hb, "device_bucket": db,
+                        "max_count_gap": int(np.abs(host - dev).max())}
+        if db != 512:
+            raise RuntimeError(f"{name}: the device probe picked {db}, "
+                               "not the 512-frame bucket")
+        got = host_call(sh.synthesize_batch, texts, scale)
+        want = synth.synthesize_batch(texts, scale)
+        if hb == db:
+            held_pcm[name] = _held_results(got, want, f"host probe {name}")
+    out["routes"], out["host_vs_device"] = routes, held_pcm
+
+    calls = {name: {"host": [], "device": []} for name in requests}
+    for probe in ("host", "device", "device", "host"):
+        for name, texts in requests.items():
+            torch.cuda.synchronize()
+            calls[name][probe] += [
+                (host_call(_split_call, sh, texts, scale) if probe == "host"
+                 else _split_call(synth, texts, scale))[0]
+                for _ in range(iters)]
+    out["times"] = {name: {probe: _split_summary(runs)
+                           for probe, runs in by_probe.items()}
+                    for name, by_probe in calls.items()}
+    out["batch64_device_throughput"] = _throughput(
+        synth, requests["batch64"], scale, iters)
+    captured = sh.graph_stats()["graphs"] - held
+    if captured:
+        raise RuntimeError(f"the host path captured {captured} graphs after "
+                           "its warmup")
+    out["graphs_after_warmup"] = {"held": held, "captured": captured}
+    stages = len(synth.model.upsample_rates)
+    want_launches = {**dict.fromkeys(Counters.NAMES, 0),
+                     "fused_vocoder_tc": n_calls * stages}
+    if launches != want_launches:
+        raise RuntimeError(f"the host path's {n_calls} calls launched "
+                           f"{launches}, not {want_launches}")
+    out["launches"], out["calls"] = launches, n_calls
+
+    gaps = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            sd = pipeline.Synthesizer(synth.model, vocoder_backend="auto",
+                                      device=synth.device, **buckets)
+            worst, flips = 0, 0
+            for k in HOST_PROBE_SCALES:
+                host, dev, hb, db = _frame_buckets(sh, sd, EVAL_TEXTS,
+                                                   k * scale)
+                worst = max(worst, int(np.abs(host - dev).max()))
+                flips += hb != db
+            gaps["cudnn_tf32_on" if tf32 else "cudnn_tf32_off"] = {
+                "max_count_gap": worst, "bucket_differs": flips}
+            del sd
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    out["frame_count_gap"] = gaps
+    del sh
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3966,8 +4176,11 @@ def main() -> int:
     # ---- 4b. the CUDA graphs of the main path, streaming and stage 1
     # against eager, on the weights the main path ran (http's /reload
     # swaps them), with figures
-    graphs_path = cuda_graphs_phase(synth, synth_f32, scale, results, card,
-                                    counters, buckets)["launches"]
+    graphs = cuda_graphs_phase(synth, synth_f32, scale, results, card,
+                               counters, buckets)
+    graphs_path, host_probe_path = (graphs["launches"],
+                                    graphs["host_probe"]["launches"])
+    del graphs
 
     # ---- 5. streaming, the batchers and the HTTP server; each path with
     # the counters zeroed just before it and read just after
@@ -3979,6 +4192,7 @@ def main() -> int:
             emit(profile_batch(lambda: list(ss.stream(EVAL_TEXTS[4], scale)),
                                card, phase=f"stream_profile_{cd}"))
     paths = {"main_path": launches, "cuda_graphs": graphs_path,
+             "host_probe": host_probe_path,
              "streaming": streaming["launches"]}
     paths["stream_batcher"] = stream_batcher_phase(
         ss16, streaming["streams"]["bf16"], scale, card,

@@ -162,6 +162,68 @@ def data_iterator(dataset, batch_size: int, buckets: Sequence[Bucket],
         epoch += 1
 
 
+
+class DataLoader:
+    """Re-iterable epoch loader: each ``iter()`` is a fresh epoch of
+    ``make_batches`` (shuffled from ``seed`` + the epoch's index).
+
+    The JAX package's host-thread counterpart of the reference's torch
+    DataLoader factory (reference src/data/dataset.py:283-308); device
+    overlap comes from ``data/prefetch.py``, not worker processes."""
+
+    def __init__(self, dataset, batch_size: int, buckets: Sequence[Bucket],
+                 shuffle: bool = True, seed: int = 0,
+                 audio_samples: Optional[int] = None, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.buckets = [tuple(b) for b in buckets]
+        self.shuffle = shuffle
+        self.seed = seed
+        self.audio_samples = audio_samples
+        self.drop_last = drop_last
+        self._epoch = 0
+        self._len: Optional[int] = None
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        seed = self.seed + (self._epoch if self.shuffle else 0)
+        self._epoch += 1
+        return make_batches(self.dataset, self.batch_size, self.buckets,
+                            seed=seed, shuffle=self.shuffle,
+                            audio_samples=self.audio_samples,
+                            drop_last=self.drop_last)
+
+    def __len__(self) -> int:
+        """Batches an epoch: full batches of each bucket, plus one padded
+        batch per non-empty remainder under ``drop_last=False`` (one pass
+        over the samples' lengths, cached)."""
+        if self._len is None:
+            per_bucket: Dict[Bucket, int] = {}
+            for i in range(len(self.dataset)):
+                s = self.dataset[i]
+                b = select_bucket(len(s["phoneme_ids"]),
+                                  int(s["mel_length"]), self.buckets)
+                per_bucket[b] = per_bucket.get(b, 0) + 1
+            total = 0
+            for count in per_bucket.values():
+                full, rem = divmod(count, self.batch_size)
+                total += full + (0 if (self.drop_last or rem == 0) else 1)
+            self._len = total
+        return self._len
+
+
+def create_dataloader(dataset, batch_size: int = 2,
+                      buckets: Optional[Sequence[Bucket]] = None,
+                      shuffle: bool = True, seed: int = 0,
+                      audio_samples: Optional[int] = None,
+                      drop_last: bool = True) -> DataLoader:
+    """A ``DataLoader`` with the default buckets (64, 256), (128, 512),
+    (256, 1000) (reference src/data/dataset.py:283-308)."""
+    if buckets is None:
+        buckets = [(64, 256), (128, 512), (256, 1000)]
+    return DataLoader(dataset, batch_size, buckets, shuffle=shuffle,
+                      seed=seed, audio_samples=audio_samples,
+                      drop_last=drop_last)
+
 class TTSDataset:
     """LJSpeech-format or paired wav/txt corpus, preprocessed to numpy.
 

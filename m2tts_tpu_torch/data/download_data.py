@@ -1,9 +1,16 @@
-"""Offline dataset CLI of the PyTorch port: the synthetic corpus builder,
-LJSpeech tree verification and the first-N subset builder.
+"""Dataset CLI of the PyTorch port: LJSpeech download, extraction and
+verification, its first-N subset, and the synthetic corpus.
 
-The offline half of ``scripts/download_data.py``, with its names, flags and
-on-disk layout (``metadata.csv`` + ``wavs/*.wav``, which ``TTSDataset``
-reads), on the port's own ``frontend.audio`` and ``frontend.text``:
+The port of ``scripts/download_data.py``, with its names, flags and on-disk
+layout (``metadata.csv`` + ``wavs/*.wav``, which ``TTSDataset`` reads), on
+the port's own ``frontend.audio`` and ``frontend.text``:
+
+  (default)       make ``data_dir/LJSpeech-1.1``: a verified tree is kept;
+                  else ``data_dir/LJSpeech-1.1.tar.bz2`` is extracted and
+                  verified, and fetched from ``LJSPEECH_URL`` first only
+                  when it is absent (a failed fetch exits 1), so a machine
+                  without network builds the tree from an archive it was
+                  given; ``--subset-size N`` then builds its first-N subset
 
   --synthetic N   build an N-utterance synthetic corpus whose audio is a
                   deterministic function of the text's phonemes
@@ -12,11 +19,9 @@ reads), on the port's own ``frontend.audio`` and ``frontend.text``:
                   bytes as the JAX package's script: the same
                   ``default_rng(42)`` draws in the same order, the same
                   peak normalisation, the same G2P and WAV writer.
-  --verify-only   check an LJSpeech tree (``data_dir/LJSpeech-1.1``)
-  --subset-size   (with --verify-only) build its first-N subset
-
-The network half (the LJSpeech download and extraction) is not ported:
-without ``--synthetic`` or ``--verify-only`` the CLI exits with code 2.
+  --verify-only   check an LJSpeech tree (``data_dir/LJSpeech-1.1``) and
+                  touch no network (with ``--subset-size``, build its
+                  first-N subset too)
 
     python -m m2tts_tpu_torch.data.download_data --synthetic 1000 \\
         --data-dir data --synthetic-profile v3
@@ -32,13 +37,50 @@ import csv
 import os
 import shutil
 import sys
+import tarfile
+import urllib.request
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
+LJSPEECH_URL = "https://data.keithito.com/data/speech/LJSpeech-1.1.tar.bz2"
 LJSPEECH_DIRNAME = "LJSpeech-1.1"
 PROFILES = ("v1", "v2", "v3")
+
+
+def download_file(url: str, output_path: Path) -> None:
+    """Stream a URL to disk with a progress line on stderr; the transfer
+    goes to ``<output>.part``, renamed on success, so an interrupted one
+    leaves no archive that a retry would take as whole."""
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+
+    def report(blocks, block_size, total):
+        done = blocks * block_size
+        if total > 0:
+            pct = min(100.0, 100.0 * done / total)
+            sys.stderr.write(f"\r  {done / 1e6:8.1f} MB / {total / 1e6:.1f} MB ({pct:5.1f}%)")
+        else:
+            sys.stderr.write(f"\r  {done / 1e6:8.1f} MB")
+        sys.stderr.flush()
+
+    print(f"Downloading {url} -> {output_path}")
+    part = output_path.with_suffix(output_path.suffix + ".part")
+    try:
+        urllib.request.urlretrieve(url, part, reporthook=report)
+    except BaseException:
+        part.unlink(missing_ok=True)
+        raise
+    part.rename(output_path)
+    sys.stderr.write("\n")
+
+
+def extract_archive(archive_path: Path, extract_to: Path) -> None:
+    print(f"Extracting {archive_path} -> {extract_to}")
+    with tarfile.open(archive_path) as tar:
+        # 'data': no member may land outside ``extract_to``
+        tar.extractall(extract_to, filter="data")
 
 
 def verify_ljspeech(ljspeech_dir: Path) -> bool:
@@ -453,6 +495,38 @@ def build_synthetic_corpus(data_dir: Path, n: int, sample_rate: int = 22050,
     return corpus
 
 
+def download_ljspeech(data_dir: Path, subset_size: Optional[int] = None
+                      ) -> Path:
+    """``data_dir/LJSpeech-1.1``, verified: kept when it verifies, else
+    extracted from ``data_dir/LJSpeech-1.1.tar.bz2`` (fetched from
+    ``LJSPEECH_URL`` only when absent; the archive is removed after). A
+    failed fetch or a tree that fails verification exits 1. With
+    ``subset_size``, returns its first-N subset."""
+    data_dir.mkdir(parents=True, exist_ok=True)
+    ljspeech_dir = data_dir / LJSPEECH_DIRNAME
+
+    present = ljspeech_dir.exists() and verify_ljspeech(ljspeech_dir)
+    if not present:
+        archive = data_dir / Path(LJSPEECH_URL).name
+        if not archive.exists():
+            try:
+                download_file(LJSPEECH_URL, archive)
+            except Exception as e:
+                print(f"Download failed ({e}). On air-gapped machines use "
+                      f"--synthetic N to build a local test corpus.")
+                sys.exit(1)
+        extract_archive(archive, data_dir)
+        archive.unlink(missing_ok=True)
+
+    if not verify_ljspeech(ljspeech_dir):
+        print("LJSpeech tree failed verification")
+        sys.exit(1)
+
+    if subset_size:
+        return create_ljspeech_subset(ljspeech_dir, subset_size)
+    return ljspeech_dir
+
+
 def download_vctk_subset(data_dir: Path, num_speakers: int = 10) -> None:
     # Stubbed, as in the reference (scripts/download_data.py:136-140).
     print("VCTK download is not implemented; LJSpeech is the supported corpus.")
@@ -460,14 +534,13 @@ def download_vctk_subset(data_dir: Path, num_speakers: int = 10) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        description="Build or verify TTS training data (PyTorch port; "
-                    "offline)")
+        description="Download / build TTS training data (PyTorch port)")
     p.add_argument("--dataset", choices=["ljspeech", "vctk"], default="ljspeech")
     p.add_argument("--data-dir", type=str, default="data")
     p.add_argument("--subset-size", "--subset", dest="subset_size",
                    type=int, default=None,
-                   help="with --verify-only: build a first-N utterance "
-                        "subset of the verified tree")
+                   help="build a first-N utterance subset of the "
+                        "downloaded (or, with --verify-only, verified) tree")
     p.add_argument("--verify-only", action="store_true",
                    help="verify an existing tree; no network access")
     p.add_argument("--synthetic-profile", default="v3", choices=PROFILES,
@@ -494,11 +567,9 @@ def main(argv=None) -> int:
         if args.subset_size:
             create_ljspeech_subset(tree, args.subset_size)
         return 0
-    print("The LJSpeech download is not ported (it needs the network): "
-          "fetch and extract LJSpeech-1.1 under --data-dir and run "
-          "--verify-only, or build a corpus with --synthetic N.",
-          file=sys.stderr)
-    return 2
+    out = download_ljspeech(data_dir, args.subset_size)
+    print(f"Dataset ready at {out}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -213,6 +213,26 @@ def db_to_power(db: np.ndarray, ref: float = 1.0) -> np.ndarray:
     return ref * np.power(10.0, 0.1 * np.asarray(db, dtype=np.float64))
 
 
+def compute_mel_spectrogram(audio: np.ndarray,
+                            sample_rate: int = DEFAULT_SAMPLE_RATE,
+                            n_fft: int = DEFAULT_N_FFT,
+                            hop_length: int = DEFAULT_HOP,
+                            win_length: int = DEFAULT_WIN,
+                            n_mels: int = DEFAULT_N_MELS,
+                            fmin: float = 0.0,
+                            fmax: Optional[float] = None) -> np.ndarray:
+    """Audio → normalised log-mel in [-1, 1], shape [n_mels, n_frames]:
+    power mel → ``power_to_db`` (ref = max, top_db = 80) → per-utterance
+    min-max normalisation (reference src/utils/audio.py:45-98)."""
+    spec = np.abs(stft(audio, n_fft, hop_length, win_length)) ** 2.0
+    mel = mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax) @ spec
+    mel_db = power_to_db(mel)
+    lo, hi = mel_db.min(), mel_db.max()
+    if hi - lo < 1e-8:
+        return np.zeros_like(mel_db, dtype=np.float32)
+    return (2.0 * (mel_db - lo) / (hi - lo) - 1.0).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Griffin-Lim inversion (validation path, pre-vocoder)
 # ---------------------------------------------------------------------------
@@ -327,7 +347,6 @@ class AudioProcessor:
         self.n_mels = n_mels
         self.fmin = fmin
         self.fmax = fmax if fmax is not None else sample_rate / 2.0
-        self._mel_basis = mel_filterbank(sample_rate, n_fft, n_mels, fmin, self.fmax)
         self._native = None
         if use_native in ("auto", True):
             from m2tts_tpu_torch.frontend import native
@@ -365,12 +384,9 @@ class AudioProcessor:
                     self.win_length, self.n_mels, self.fmin, self.fmax)
             except ValueError:
                 pass  # shorter than one frame: the NumPy path pads it
-        spec = np.abs(stft(audio, self.n_fft, self.hop_length, self.win_length)) ** 2.0
-        mel_db = power_to_db(self._mel_basis @ spec)
-        lo, hi = mel_db.min(), mel_db.max()
-        if hi - lo < 1e-8:
-            return np.zeros_like(mel_db, dtype=np.float32)
-        return (2.0 * (mel_db - lo) / (hi - lo) - 1.0).astype(np.float32)
+        return compute_mel_spectrogram(audio, self.sample_rate, self.n_fft,
+                                       self.hop_length, self.win_length,
+                                       self.n_mels, self.fmin, self.fmax)
 
     def process_file(self, path: Union[str, Path]) -> Tuple[np.ndarray, np.ndarray]:
         audio, _ = load_wav(path, self.sample_rate)

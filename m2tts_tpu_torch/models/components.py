@@ -189,6 +189,18 @@ def spectral_normalize(w: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
     return w / (sigma + 1e-12)
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """Functional global-norm gradient clipping → (clipped, global_norm),
+    over a nest (dict, list, tuple) of tensors. The trainers clip inside
+    their ``Optimizer``; this standalone form serves custom loops."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                           for g in tree_leaves(grads)))
+    scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads), gnorm
+
+
 class Conv1d(nn.Module):
     """1D conv on [B, T, C] with symmetric padding (k-1)·d//2 and stride
     ``stride``. With ``spectral_norm`` the weight is divided by its

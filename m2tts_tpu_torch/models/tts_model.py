@@ -306,3 +306,33 @@ def init_params(model: M2TTS, generator: torch.Generator,
             mod.bn_scale.fill_(1.0)
             mod.bn_bias.zero_()
     return model.to(dev).eval()
+
+
+def _named_tensors(model_or_state) -> Dict[str, torch.Tensor]:
+    if isinstance(model_or_state, nn.Module):
+        return dict(model_or_state.named_parameters())
+    return dict(model_or_state)
+
+
+def count_parameters(model_or_state) -> int:
+    """Elements of a module's parameters, or of every tensor of a state
+    dict."""
+    return sum(t.numel() for t in _named_tensors(model_or_state).values())
+
+
+def model_size_report(model_or_state) -> Dict[str, Any]:
+    """Parameter counts by top-level component (``text_encoder``,
+    ``duration_predictor``, ``decoder``, ``vocoder``) and in f32 MB, with
+    the JAX package's keys."""
+    components: Dict[str, Dict[str, Any]] = {}
+    for name, t in _named_tensors(model_or_state).items():
+        c = components.setdefault(name.split(".", 1)[0], {"total": 0})
+        c["total"] += t.numel()
+    for c in components.values():
+        c["size_mb"] = c["total"] * 4 / (1024 * 1024)
+    total = sum(c["total"] for c in components.values())
+    return {
+        "total_params": total,
+        "total_size_mb": total * 4 / (1024 * 1024),
+        "components": components,
+    }

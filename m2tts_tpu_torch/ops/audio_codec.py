@@ -34,6 +34,13 @@ def mulaw_encode_pcm16(pcm: torch.Tensor) -> torch.Tensor:
     return byte.to(torch.uint8)
 
 
+def mulaw_encode_f32(audio: torch.Tensor) -> torch.Tensor:
+    """f32 waveform in [-1, 1] → μ-law bytes: clipped, quantised to int16
+    as the serving PCM is, then G.711."""
+    pcm = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return mulaw_encode_pcm16(pcm)
+
+
 def _build_decode_table() -> np.ndarray:
     u = np.arange(256, dtype=np.int32) ^ 0xFF  # ~byte, as uint8 bits
     sign = (u & 0x80) != 0

@@ -330,3 +330,11 @@ def load_config(path: Union[str, Path], overrides: Optional[List[str]] = None) -
     if overrides:
         cfg = cfg.apply_overrides(overrides)
     return cfg
+
+
+def save_config(cfg: Config, path: Union[str, Path]) -> None:
+    """Write ``cfg`` as YAML (``Config.to_yaml``), making the parent
+    directory."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        f.write(cfg.to_yaml())

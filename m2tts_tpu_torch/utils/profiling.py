@@ -98,3 +98,10 @@ class StepProfiler:
         if self._prof is not None:
             self._finish(self._first + self.num_steps - 1
                          if last_step is None else last_step)
+
+
+def annotate_step(name: str, step: Optional[int] = None):
+    """A ``record_function`` range for an ad-hoc region: ``name``, or
+    ``name#step`` for a step of a loop."""
+    return torch.profiler.record_function(
+        name if step is None else f"{name}#{step}")

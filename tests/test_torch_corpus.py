@@ -2,9 +2,11 @@
 ``evaluation/corpus_floors.py``) against the JAX package's scripts: the
 synthetic corpus of every profile byte for byte, each renderer's arrays,
 the LJSpeech verifier and subset builder, the floors' JSON (1e-5), and the
-CLI's exit codes."""
+CLI's exit codes (the LJSpeech download from a local archive; no case
+reaches the network)."""
 
 import json
+import tarfile
 from pathlib import Path
 
 import numpy as np
@@ -152,18 +154,31 @@ def test_global_envelope_noise_matches_jax():
         jfloors.global_envelope_noise(audio, np.random.default_rng(3), 22050))
 
 
-def test_cli_exit_codes(tmp_path, capsys):
+def test_cli_exit_codes(tmp_path, capsys, monkeypatch):
     assert tdd.main(["--synthetic", "2", "--synthetic-profile", "v1",
                      "--data-dir", str(tmp_path)]) == 0
     assert (tmp_path / "synthetic-2" / "metadata.csv").exists()
     # the default profile is v3, as in the JAX script
     assert tdd.main(["--synthetic", "1", "--data-dir", str(tmp_path)]) == 0
     assert (tmp_path / "synthetic-v3-1" / "wavs" / "SYN00000.wav").exists()
-    # the network half is not ported: no flag that needs it succeeds
-    capsys.readouterr()
-    assert tdd.main(["--data-dir", str(tmp_path)]) == 2
-    assert "not ported" in capsys.readouterr().err
-    assert tdd.main(["--data-dir", str(tmp_path), "--subset-size", "2"]) == 2
+    # the LJSpeech download, as the JAX script's main: a failed fetch exits
+    # 1; an archive already in --data-dir is extracted with no fetch (the
+    # URL is a file:// path that does not exist: nothing reaches the network)
+    monkeypatch.setattr(tdd, "LJSPEECH_URL",
+                        (tmp_path / "absent" / "LJSpeech-1.1.tar.bz2").as_uri())
+    with pytest.raises(SystemExit) as e:
+        tdd.main(["--data-dir", str(tmp_path)])
+    assert e.value.code == 1
+    offline = tmp_path / "offline"
+    _ljspeech_tree(offline / "src")
+    (offline / "src" / "LJSpeech-1.1" / "wavs" / "LJ001-0002.wav").write_bytes(
+        (offline / "src" / "LJSpeech-1.1" / "wavs" / "LJ001-0001.wav")
+        .read_bytes())
+    with tarfile.open(offline / "LJSpeech-1.1.tar.bz2", "w:bz2") as tar:
+        tar.add(offline / "src" / "LJSpeech-1.1", arcname="LJSpeech-1.1")
+    assert tdd.main(["--data-dir", str(offline), "--subset-size", "2"]) == 0
+    assert tdd.verify_ljspeech(offline / "LJSpeech-1.1")
+    assert (offline / "LJSpeech-1.1-subset-2" / "metadata.csv").exists()
     assert tdd.main(["--dataset", "vctk"]) == 0
     assert tdd.main(["--verify-only", "--data-dir", str(tmp_path)]) == 1
     _ljspeech_tree(tmp_path)

@@ -26,7 +26,9 @@ the Synthesizer at three duration scales, two text sets, int16 and μ-law
 with the mel (equal, and the replays' counted launches equal eager's),
 ``synthesize_stream`` of three same-bucket batches (each result survives
 the next replay), ``swap_params`` in both dtypes capturing no new graph
-and replaying a fresh Synthesizer's PCM, a stream chunk by chunk, the
+and replaying a fresh Synthesizer's PCM, ``frame_probe='host'`` against
+``'device'`` (same buckets, 0 LSB, no graph captured after warmup), a
+stream chunk by chunk, the
 short path as one graph per length, six f32 stage-1 steps over two buckets under
 deterministic algorithms (rtol 1e-6), and a capture that fails (a host
 sync) raising and leaving the runner usable; and the training graphs
@@ -750,6 +752,37 @@ def test_swap_params_keeps_the_graphs(cd):
     s.swap_params(_tiny_model().state_dict())
     _same_out(_synth_out(s, texts, 12.0), first)
     assert s.graph_stats()["graphs"] == graphs
+
+
+@needs_cuda
+@pytest.mark.parametrize("cd", ["f32", "bf16"])
+def test_host_frame_probe_equals_device(cd):
+    """``frame_probe='host'`` (the f32 probe on a CPU copy) routes these
+    requests to the device probe's bucket (host counts + 2), and its replays
+    give the device-probe Synthesizer's PCM (0 LSB); after ``warmup(full=
+    True)`` its calls capture no graph."""
+    from m2tts_tpu_torch.serving import pipeline
+
+    model = _tiny_model()
+    host = Synthesizer(model, compute_dtype=cd, frame_probe="host",
+                       **GRAPH_BUCKETS)
+    device = Synthesizer(model, compute_dtype=cd, **GRAPH_BUCKETS)
+    host.warmup(full=True)
+    graphs = host.graph_stats()["graphs"]
+    for texts in GRAPH_TEXTS:
+        packed = pipeline.encode_packed_batch(
+            host.text_processor, texts, host.batch_buckets, host.text_buckets)
+        for scale in (4.8, 6.0, 7.8):
+            h = host.predict_frames_host(packed[:, :-1], packed[:, -1], scale)
+            d = device.predict_frames(packed[:, :-1], packed[:, -1], scale)
+            n = len(texts)
+            assert pipeline._bucket_for(
+                int(h[:n].max()) + pipeline.HOST_PROBE_GUARD,
+                host.frame_buckets) == pipeline._bucket_for(
+                int(d[:n].max()), host.frame_buckets)
+            _same_out(_synth_out(host, texts, scale),
+                      _synth_out(device, texts, scale))
+    assert host.graph_stats()["graphs"] == graphs
 
 
 @needs_cuda
