@@ -37,6 +37,14 @@ graph. A gloo mesh runs eagerly.
 model's, its bf16 copy's, the packed vocoder weights and the kernels'
 operands), so a swap keeps every graph, as the JAX package's swap keeps
 every compiled program.
+
+A Synthesizer counts its work in plain integers, always on: ``calls``
+(launches), ``frames_run`` (batch bucket × frame bucket, summed over the
+calls), ``frames_served`` (over the real rows, each row's frames up to
+its bucket) and ``truncated`` (rows cut at the bucket);
+``frames_served / frames_run`` is the share of synthesised frames a
+caller gets. Its spans (``synth.launch``, ``synth.collect`` and their
+children) are ``utils/profiling.py``'s, recorded while tracing is on.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from m2tts_tpu_torch.utils.checkpoint import load_for_inference
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.device import resolve_device
 from m2tts_tpu_torch.utils.graphs import step_graphs
+from m2tts_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -294,6 +303,13 @@ class HostProbe:
         return probe_frames(self, p[:, :-1], p[:, -1], scale).numpy()
 
 
+class _Launched(dict):
+    """A launch's device outputs, and its call number (the ``ident`` its
+    collect's spans share)."""
+
+    __slots__ = ("call",)
+
+
 def quantize_pcm16(audio: torch.Tensor) -> torch.Tensor:
     """Waveform in [-1, 1] (any float dtype) → int16 PCM, computed in f32."""
     return (torch.clamp(audio.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
@@ -386,6 +402,11 @@ class Synthesizer:
         self._vocode = (None if self.vocoder_backend == "torch" else
                         make_vocoder_fn(self.model, self.vocoder_backend,
                                         self.compute_dtype))
+        # the work counters (module docstring)
+        self.calls = 0
+        self.frames_run = 0
+        self.frames_served = 0
+        self.truncated = 0
 
     @torch.no_grad()
     def _refresh_copies(self) -> None:
@@ -513,17 +534,30 @@ class Synthesizer:
         A leader first sends the call to its followers."""
         if pcm_format not in ("int16", "mulaw"):
             raise ValueError(f"Unknown pcm_format {pcm_format!r}")
-        host = encode_packed_batch(self.text_processor, texts,
-                                   self.batch_buckets, self.text_buckets)
-        self._announce("launch", texts, duration_scale, max_frames, want_mel,
-                       pcm_format)
-        packed, scale = self._to_device(host), self._scale(duration_scale)
-        if max_frames is None:
-            totals = self._frame_totals(host, packed, scale, duration_scale)
-            max_frames = _bucket_for(int(totals[: len(texts)].max()),
-                                     self.frame_buckets)
-        out = self._run(packed, scale, max_frames, want_mel, pcm_format)
-        return {k: self._gather(v) for k, v in out.items()}, max_frames
+        self.calls += 1
+        call = self.calls
+        with span("synth.launch", call):
+            with span("synth.encode", call, call):
+                host = encode_packed_batch(self.text_processor, texts,
+                                           self.batch_buckets,
+                                           self.text_buckets)
+                self._announce("launch", texts, duration_scale, max_frames,
+                               want_mel, pcm_format)
+                packed = self._to_device(host)
+                scale = self._scale(duration_scale)
+            if max_frames is None:
+                with span("synth.probe", call, call):
+                    totals = self._frame_totals(host, packed, scale,
+                                                duration_scale)
+                    max_frames = _bucket_for(int(totals[: len(texts)].max()),
+                                             self.frame_buckets)
+            with span("synth.enqueue", call, call):
+                out = self._run(packed, scale, max_frames, want_mel,
+                                pcm_format)
+                out = _Launched((k, self._gather(v)) for k, v in out.items())
+            out.call = call
+            self.frames_run += host.shape[0] * max_frames
+        return out, max_frames
 
     @staticmethod
     def _fetch(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -532,7 +566,18 @@ class Synthesizer:
 
     def _collect(self, out, max_frames: int, n: int, want_mel: bool,
                  pcm_only: bool = False) -> List[Dict[str, np.ndarray]]:
-        host = self._fetch(out)
+        call = getattr(out, "call", None)
+        with span("synth.collect", call):
+            with span("synth.fetch", call, call):
+                host = self._fetch(out)
+            with span("synth.unpack", call, call):
+                return self._unpack(host, max_frames, n, want_mel, pcm_only)
+
+    def _unpack(self, host: Dict[str, np.ndarray], max_frames: int, n: int,
+                want_mel: bool, pcm_only: bool
+                ) -> List[Dict[str, np.ndarray]]:
+        """The fetched outputs → per-utterance results (trimmed; μ-law
+        decoded and float32 copies unless ``pcm_only``)."""
         pcm = host["pcm"]  # [B, samples] int16 (or uint8 μ-law)
         mulaw = pcm.dtype == np.uint8
         totals = host["total_frames"]
@@ -548,10 +593,12 @@ class Synthesizer:
                     res["audio_pcm"] = trimmed
             else:
                 res = {"audio_pcm": trimmed, "frames": frames}
+            self.frames_served += frames
             if int(totals[i]) > max_frames:
                 # the predicted length exceeds the largest frame bucket: the
                 # audio is cut off mid-utterance; say so
                 res["truncated"] = True
+                self.truncated += 1
                 logger.warning(
                     "Utterance %d predicted %d frames but the frame bucket "
                     "caps at %d — audio truncated (raise the frame buckets "

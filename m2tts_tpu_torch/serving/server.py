@@ -204,7 +204,10 @@ def make_handler(synth, info, stream_chunk_frames: int = 64,
             if self.path != "/healthz":
                 self._json(404, {"error": f"no route {self.path}"})
                 return
-            stats = {}
+            stats = {"synth_calls": synth.calls,
+                     "synth_frames_run": synth.frames_run,
+                     "synth_frames_served": synth.frames_served,
+                     "synth_truncated": synth.truncated}
             if batcher is not None:
                 stats["batched_requests_served"] = batcher.requests_served
                 stats["batches_run"] = batcher.batches_run
@@ -213,6 +216,10 @@ def make_handler(synth, info, stream_chunk_frames: int = 64,
                 stats["streams_served"] = sb.streams_served
                 stats["stream_chunk_dispatches"] = sb.chunk_dispatches
                 stats["stream_chunks_emitted"] = sb.chunks_emitted
+                stats["stream_admit_passes"] = sb.admit_passes
+                stats["stream_admitted"] = sb.admitted
+                stats["stream_lock_acquires"] = sb.lock_acquires
+                stats["stream_lock_wait_ns"] = sb.lock_wait_ns
             self._json(200, {"status": "ok", **info, **stats})
 
         def do_POST(self):

@@ -22,6 +22,14 @@ each stream what its solo stream gives (``StreamingSynthesizer.stream``).
 Both workers run under ``torch.inference_mode`` in their own threads, and
 every device call goes through the shared ``lock``. On CUDA each call is a
 replay of the streamer's graph for its batch bucket (``utils/graphs.py``).
+
+The batcher counts its work in plain integers, always on:
+``streams_served``, ``chunk_dispatches`` and ``chunks_emitted`` (the
+scheduler), ``admit_passes`` and ``admitted`` (acoustic passes and the
+requests they admitted), ``lock_acquires`` and ``lock_wait_ns`` (its
+acquisitions of the shared device lock and the time spent waiting for
+them). Its spans (``stream.*``) are ``utils/profiling.py``'s, recorded
+while tracing is on.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from m2tts_tpu_torch.utils.profiling import record, span, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -65,14 +75,39 @@ class _Active:
         self.out: queue.SimpleQueue = queue.SimpleQueue()
 
 
+class _DeviceLock:
+    """The shared device lock as the batcher takes it: each acquisition
+    adds its wait to the owner's ``lock_wait_ns`` and ``lock_acquires``
+    (under the lock, so threads never race on them) and, while tracing is
+    on, records a ``stream.lock_wait`` span."""
+
+    __slots__ = ("owner", "lock")
+
+    def __init__(self, owner: "StreamBatcher"):
+        self.owner, self.lock = owner, owner.lock
+
+    def __enter__(self) -> None:
+        t0 = time.perf_counter_ns()
+        self.lock.acquire()
+        t1 = time.perf_counter_ns()
+        self.owner.lock_wait_ns += t1 - t0
+        self.owner.lock_acquires += 1
+        record("stream.lock_wait", t0, t1)
+
+    def __exit__(self, *exc) -> None:
+        self.lock.release()
+
+
 class _PendingAdmit:
     __slots__ = ("ids", "length", "scale", "event", "mel", "frames",
-                 "active", "error")
+                 "active", "error", "queued")
 
     def __init__(self, ids: np.ndarray, length: int, scale: float):
         self.ids = ids
         self.length = length
         self.scale = scale
+        # (admission number, put time in ns) while tracing is on
+        self.queued: Optional[tuple] = None
         self.event = threading.Event()
         self.mel: Optional[torch.Tensor] = None
         self.frames = 0
@@ -115,6 +150,12 @@ class StreamBatcher:
         self.streams_served = 0
         self.chunk_dispatches = 0
         self.chunks_emitted = 0
+        self.admit_passes = 0
+        self.admitted = 0
+        self.lock_acquires = 0
+        self.lock_wait_ns = 0
+        self._device = _DeviceLock(self)
+        self._queued = 0  # admissions numbered while tracing is on
         self._admitter = threading.Thread(target=self._admit_loop,
                                           daemon=True, name="stream-admit")
         self._scheduler = threading.Thread(target=self._schedule_loop,
@@ -142,6 +183,9 @@ class StreamBatcher:
             if self._closed:
                 raise RuntimeError("stream batcher is closed")
             for p in pendings:
+                if tracing():
+                    self._queued += 1
+                    p.queued = (self._queued, time.perf_counter_ns())
                 self._admit_q.put(p)
         for p in pendings:
             if not p.event.wait(timeout):
@@ -166,7 +210,7 @@ class StreamBatcher:
                       ) -> Iterator[np.ndarray]:
         # an utterance within one window: the solo path's whole-mel f32
         # call (batching padded mels would change the edge values)
-        with self.lock:
+        with self._device, span("stream.short"):
             chunks = list(self._sv.stream(mel, frames))
         with self._mu:  # consumer threads race on the counter
             self.streams_served += 1
@@ -201,7 +245,7 @@ class StreamBatcher:
         st, sv = self.streamer, self._sv
         C = sv.model.mel_channels
         n = 0
-        with self.lock, torch.inference_mode():
+        with self._device, torch.inference_mode():
             for b in self.reachable_buckets():
                 ids = torch.zeros((b, st.text_bucket), dtype=torch.int32,
                                   device=st.device)
@@ -241,18 +285,19 @@ class StreamBatcher:
                 batch = [first]
                 deadline = time.monotonic() + self.max_wait
                 stop = False
-                while len(batch) < self.max_streams:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    try:
-                        item = self._admit_q.get(timeout=remaining)
-                    except queue.Empty:
-                        break
-                    if item is None:
-                        stop = True
-                        break
-                    batch.append(item)
+                with span("stream.admit_window"):
+                    while len(batch) < self.max_streams:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            item = self._admit_q.get(timeout=remaining)
+                        except queue.Empty:
+                            break
+                        if item is None:
+                            stop = True
+                            break
+                        batch.append(item)
                 self._admit_batch(batch)
                 if stop:
                     return
@@ -272,11 +317,21 @@ class StreamBatcher:
                 lengths = np.array([p.length for p in group]
                                    + [group[-1].length] * (B - len(group)),
                                    np.int32)
-                with self.lock:
-                    mel, total = st._acoustic(
-                        torch.from_numpy(ids).to(st.device),
-                        torch.from_numpy(lengths).to(st.device), scale)
-                    total = total.cpu().numpy()  # the one blocking fetch
+                with self._device:
+                    self.admit_passes += 1
+                    self.admitted += len(group)
+                    n = self.admit_passes
+                    if tracing():
+                        now = time.perf_counter_ns()
+                        for p in group:
+                            if p.queued is not None:
+                                record("stream.queued", p.queued[1], now,
+                                       p.queued[0], n)
+                    with span("stream.admit_pass", n):
+                        mel, total = st._acoustic(
+                            torch.from_numpy(ids).to(st.device),
+                            torch.from_numpy(lengths).to(st.device), scale)
+                        total = total.cpu().numpy()  # the one blocking fetch
                 for i, p in enumerate(group):
                     p.frames = int(min(int(total[i]), st.max_frames))
                     p.mel = mel[i]
@@ -311,7 +366,8 @@ class StreamBatcher:
                     # exit only when no admission can still activate one
                     if self._closed and not self._admitter.is_alive():
                         return
-                    self._wake.wait(timeout=0.05)
+                    with span("stream.sched_wait"):
+                        self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
                 done = self._dispatch(group)
@@ -327,31 +383,37 @@ class StreamBatcher:
         """One batched chunk call for ``group``; returns the streams that
         ended (or failed)."""
         done: List[_Active] = []
+        # the dispatch's ident: the dispatches made before it
+        k = self.chunk_dispatches
         try:
-            n = len(group)
-            B = _bucket(n, self.max_streams)
-            # the window math of StreamingVocoder.stream; pad slots repeat
-            # the last window
-            starts = [self._sv._window_start(s.ci, s.frames) for s in group]
-            windows = [s.mel[w: w + self._W] for s, w in zip(group, starts)]
-            windows += [windows[-1]] * (B - n)
-            with self.lock:
-                # torch.stack writes a new contiguous [B, W, C] tensor, as
-                # the kernel wrapper requires
-                audio = self._sv._run_chunk(
-                    torch.stack(windows).contiguous()).cpu().numpy()
-            self.chunk_dispatches += 1
-            for i, (s, w) in enumerate(zip(group, starts)):
-                start = s.ci * self._chunk
-                end = min(start + self._chunk, s.frames)
-                off = (start - w) * self._U
-                s.out.put(("chunk", audio[i, off: off + (end - start)
-                                          * self._U]))
-                self.chunks_emitted += 1
-                s.ci += 1
-                if s.ci >= s.n_chunks:
-                    s.out.put(("done", None))
-                    done.append(s)
+            with span("stream.dispatch", k):
+                n = len(group)
+                B = _bucket(n, self.max_streams)
+                # the window math of StreamingVocoder.stream; pad slots
+                # repeat the last window
+                starts = [self._sv._window_start(s.ci, s.frames)
+                          for s in group]
+                windows = [s.mel[w: w + self._W]
+                           for s, w in zip(group, starts)]
+                windows += [windows[-1]] * (B - n)
+                with self._device, span("stream.chunk_run", k, k):
+                    # torch.stack writes a new contiguous [B, W, C] tensor,
+                    # as the kernel wrapper requires
+                    audio = self._sv._run_chunk(
+                        torch.stack(windows).contiguous()).cpu().numpy()
+                self.chunk_dispatches += 1
+                with span("stream.hand_out", k, k):
+                    for i, (s, w) in enumerate(zip(group, starts)):
+                        start = s.ci * self._chunk
+                        end = min(start + self._chunk, s.frames)
+                        off = (start - w) * self._U
+                        s.out.put(("chunk", audio[i, off: off + (end - start)
+                                                  * self._U]))
+                        self.chunks_emitted += 1
+                        s.ci += 1
+                        if s.ci >= s.n_chunks:
+                            s.out.put(("done", None))
+                            done.append(s)
         except Exception as e:
             logger.exception("batched chunk dispatch failed (%d streams)",
                              len(group))

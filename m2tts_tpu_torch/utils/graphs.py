@@ -22,7 +22,9 @@ key with ``torch.cuda.CUDAGraph`` and replays it after that:
   launches its capture recorded; the capture itself counts none;
 - Python's cyclic garbage collector is off while a capture is under way:
   a cycle it frees may hold another runner's graph, whose destruction
-  inside the capture would invalidate it.
+  inside the capture would invalidate it;
+- a capture, its eager run included, is a ``graph.capture`` span (ident:
+  the full key) while ``utils/profiling.py``'s tracing is on.
 
 Graphs share the pool safely in any replay order because every graph's
 outputs are read (cloned) right after its own replay, under the lock, and
@@ -52,6 +54,8 @@ from typing import (Any, Callable, Dict, Hashable, Iterator, Optional,
                     Sequence, Tuple)
 
 import torch
+
+from m2tts_tpu_torch.utils.profiling import span
 
 #: the kernel wrappers' launch counters as (module, attribute)
 COUNTERS = (("m2tts_tpu_torch.ops.cuda.vocoder", "LAUNCHES_TC"),
@@ -184,7 +188,8 @@ class GraphRunner:
         with self._lock:
             entry = self._graphs.get(full_key)
             if entry is None:
-                return self._capture(full_key, fn, args, generators)
+                with span("graph.capture", full_key):
+                    return self._capture(full_key, fn, args, generators)
             for buf, a in zip(entry.inputs, args):
                 buf.copy_(a, non_blocking=True)
             entry.graph.replay()

@@ -13,14 +13,51 @@ Counterpart of ``m2tts_tpu/utils/profiling.py``: traces training steps
 
 Each traced step is a ``record_function`` range named ``train_step_<n>``.
 Disabled (``start_step`` 0), every method is a no-op.
+
+Spans of the serving path (a port addition; the JAX package has none):
+``span(name, ident, parent)`` times a stretch of host work on
+``time.perf_counter_ns()`` while tracing is on (``enable()``), and
+``drain()`` hands the recorded spans over as
+``(name, ident, parent, thread id, start_ns, end_ns)``. Spans of one call
+or request share an ``ident``; a child names its parent's ``ident`` as its
+``parent``, so a span's self time is its length less its children's. Off
+(the default), ``span`` returns one shared null context after one flag
+check: it allocates and records nothing. Nothing is written anywhere: the
+caller that drains the spans decides what to do with them.
+
+The spans, by module (``serving/pipeline.py``, ``serving/stream_batcher.py``,
+``utils/graphs.py``):
+
+- ``synth.launch`` (ident: the Synthesizer's call number) with the children
+  ``synth.encode`` (G2P, packing, the pinned host batch), ``synth.probe``
+  (the frame probe and its blocking fetch) and ``synth.enqueue`` (the
+  synthesis replay and its output clones); ``synth.collect`` with
+  ``synth.fetch`` (the wait for the device and the copy to the host) and
+  ``synth.unpack`` (trims, μ-law decode, float32 copies);
+- ``stream.queued`` (ident: the admission's number; parent: its pass), from
+  the put on the admission queue until its pass holds the device lock;
+  ``stream.admit_window`` (the coalescing window); ``stream.admit_pass``
+  (ident: the pass's number; the acoustic pass and its frame-count fetch);
+  ``stream.sched_wait`` (the scheduler idle, no stream active);
+  ``stream.dispatch`` (ident: the dispatches before it) with
+  ``stream.chunk_run`` (stack, replay, fetch) and ``stream.hand_out``
+  (slices and queue puts); ``stream.short`` (a short-path call and its
+  fetch); ``stream.lock_wait`` (a wait for the shared device lock);
+- ``graph.capture`` (ident: the graph's key), a capture and its eager run.
+
+``stream.queued`` and ``stream.lock_wait`` overlap others of their name
+(they are waits of several threads); every other name is opened by one
+thread at a time, so its spans never overlap one another.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import threading
+import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -105,3 +142,68 @@ def annotate_step(name: str, step: Optional[int] = None):
     ``name#step`` for a step of a loop."""
     return torch.profiler.record_function(
         name if step is None else f"{name}#{step}")
+
+
+# -- spans of the serving path ----------------------------------------------
+#: one recorded span: (name, ident, parent, thread id, start_ns, end_ns)
+Span = Tuple[str, object, object, int, int, int]
+
+_TRACING = False
+_SPANS: List[Span] = []  # appended from many threads (list.append is atomic)
+_NULL = contextlib.nullcontext()
+
+
+class _Open:
+    __slots__ = ("name", "ident", "parent", "start")
+
+    def __init__(self, name, ident, parent):
+        self.name, self.ident, self.parent = name, ident, parent
+
+    def __enter__(self) -> None:
+        self.start = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        _SPANS.append((self.name, self.ident, self.parent,
+                       threading.get_ident(), self.start,
+                       time.perf_counter_ns()))
+
+
+def span(name: str, ident=None, parent=None):
+    """A context manager that records ``name``'s span while tracing is on;
+    off, the one shared null context."""
+    if not _TRACING:
+        return _NULL
+    return _Open(name, ident, parent)
+
+
+def record(name: str, start_ns: int, end_ns: int, ident=None,
+           parent=None) -> None:
+    """Record a span timed by its caller (a wait that starts on one thread
+    and ends on another), on ``time.perf_counter_ns()``; nothing while
+    tracing is off."""
+    if _TRACING:
+        _SPANS.append((name, ident, parent, threading.get_ident(), start_ns,
+                       end_ns))
+
+
+def tracing() -> bool:
+    """Whether spans are being recorded."""
+    return _TRACING
+
+
+def enable() -> None:
+    global _TRACING
+    _TRACING = True
+
+
+def disable() -> None:
+    global _TRACING
+    _TRACING = False
+
+
+def drain() -> List[Span]:
+    """The spans recorded so far, in the order they closed; the record is
+    emptied."""
+    out = _SPANS[:]
+    del _SPANS[: len(out)]
+    return out

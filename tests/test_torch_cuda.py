@@ -30,8 +30,9 @@ and replaying a fresh Synthesizer's PCM, ``frame_probe='host'`` against
 ``'device'`` (same buckets, 0 LSB, no graph captured after warmup), a
 stream chunk by chunk, the
 short path as one graph per length, six f32 stage-1 steps over two buckets under
-deterministic algorithms (rtol 1e-6), and a capture that fails (a host
-sync) raising and leaving the runner usable; and the training graphs
+deterministic algorithms (rtol 1e-6), a capture recording one
+``graph.capture`` span and its replays none, and a capture that fails (a
+host sync) raising and leaving the runner usable; and the training graphs
 against eager under deterministic algorithms (bitwise, or ``NONDET_REL``
 where an op warns that it has no deterministic version): the fused GAN
 step in both lowerings, with and without spectral norm, in f32 and bf16,
@@ -843,6 +844,33 @@ def test_capture_runs_with_the_collector_paused():
     for _ in range(2):
         torch.testing.assert_close(runner(("k",), fn, x), x * 2)
     assert seen == [True, False] and gc.isenabled()
+
+
+@needs_cuda
+def test_capture_is_one_span_and_replays_none():
+    """While tracing is on, a key's capture (its eager run included) is
+    one ``graph.capture`` span named by the key; its replays record no
+    span."""
+    from m2tts_tpu_torch.utils import profiling
+    from m2tts_tpu_torch.utils.graphs import GraphRunner
+
+    runner = GraphRunner("cuda")
+    x = torch.ones(4, device="cuda")
+    profiling.drain()
+    profiling.enable()
+    try:
+        runner(("k",), lambda t: t * 2, x)
+        captured = profiling.drain()
+        for _ in range(3):
+            torch.testing.assert_close(runner(("k",), lambda t: t * 2, x),
+                                       x * 2)
+        replayed = profiling.drain()
+    finally:
+        profiling.disable()
+        profiling.drain()
+    assert [s[:2] for s in captured] == [
+        ("graph.capture", (("k",), (((4,), torch.float32),)))]
+    assert replayed == [] and runner.stats()["replays"] == 3
 
 
 @needs_cuda

@@ -407,6 +407,42 @@ def test_dynamic_batch_routes(models):
                    _local_stream_pcm(ss, text))
 
 
+def test_healthz_lists_the_work_counters(models):
+    """The Synthesizer's counters from the start, the StreamBatcher's
+    admission and device-lock counters beside its chunk counters once
+    the batcher exists."""
+    srv = _Server(_synth(models), dynamic_batch_wait_ms=5.0)
+    try:
+        _, before = _get(srv.url + "/healthz")
+        status, _, _ = _post(srv.url + "/synthesize_batch",
+                             {"texts": ["hello world", "a second text"],
+                              "duration_scale": SCALE})
+        assert status == 200
+        status, _, _ = _post(srv.url + "/synthesize_stream",
+                             {"text": "the quick brown fox",
+                              "duration_scale": SCALE})
+        assert status == 200
+        _, after = _get(srv.url + "/healthz")
+    finally:
+        srv.close()
+    synth = srv.synth
+    assert {k: before[k] for k in ("synth_calls", "synth_frames_run",
+                                   "synth_frames_served",
+                                   "synth_truncated")} == \
+        dict(synth_calls=0, synth_frames_run=0, synth_frames_served=0,
+             synth_truncated=0)
+    assert "stream_admitted" not in before
+    assert (after["synth_calls"], after["synth_frames_run"],
+            after["synth_frames_served"], after["synth_truncated"]) == \
+        (synth.calls, synth.frames_run, synth.frames_served,
+         synth.truncated)
+    assert 0 < after["synth_frames_served"] <= after["synth_frames_run"]
+    assert (after["stream_admitted"], after["stream_admit_passes"]) == (1, 1)
+    assert after["stream_lock_acquires"] >= 1 + \
+        after["stream_chunk_dispatches"]
+    assert after["stream_lock_wait_ns"] >= 0
+
+
 def test_warmup_streams_runs_the_stream_batcher_buckets(models, capsys):
     srv = _Server(_synth(models), dynamic_batch_wait_ms=5.0,
                   warmup_streams=True)
