@@ -9,8 +9,10 @@ a (batch, text, frames) bucket from a small set:
    ``frame_probe='host'`` on an f32 CPU copy of the encoder and duration
    predictor (``HostProbe``), whose counts get a +2 guard,
 3. pick the frame bucket and run the synthesis there,
-4. quantise to int16 PCM (or G.711 μ-law) on the device and trim on the
-   host to ``total_frames × upsample``.
+4. quantise to int16 PCM (or G.711 μ-law) on the device, make there every
+   output a caller gets (the μ-law decode, the float32 waveform), copy
+   each to pinned host memory without waiting and trim there to
+   ``total_frames × upsample``.
 
 On CUDA a bucket is one CUDA graph, the counterpart of the JAX package's
 one jitted program per bucket (``utils/graphs.py``): the probe is one graph
@@ -43,13 +45,16 @@ A Synthesizer counts its work in plain integers, always on: ``calls``
 calls), ``frames_served`` (over the real rows, each row's frames up to
 its bucket) and ``truncated`` (rows cut at the bucket);
 ``frames_served / frames_run`` is the share of synthesised frames a
-caller gets. Its spans (``synth.launch``, ``synth.collect`` and their
+caller gets; ``pinned_fetches`` (calls whose outputs came through the
+pinned copies) and ``fetched_bytes`` (the bytes they carried) stay 0 off
+CUDA. Its spans (``synth.launch``, ``synth.collect`` and their
 children) are ``utils/profiling.py``'s, recorded while tracing is on.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import logging
 import re
 from typing import (Dict, Iterable, Iterator, List, Optional,
@@ -60,7 +65,8 @@ import torch
 
 from m2tts_tpu_torch.frontend.text import TextProcessor
 from m2tts_tpu_torch.models.tts_model import M2TTS, build_model, init_params
-from m2tts_tpu_torch.ops.audio_codec import mulaw_decode_np, mulaw_encode_pcm16
+from m2tts_tpu_torch.ops.audio_codec import (MULAW_DECODE_TABLE,
+                                             mulaw_encode_pcm16)
 from m2tts_tpu_torch.ops.vocoder_mm import (DTYPES, pack_vocoder_weights,
                                             vocoder_mm_forward)
 from m2tts_tpu_torch.parallel import mesh as pmesh
@@ -304,10 +310,40 @@ class HostProbe:
 
 
 class _Launched(dict):
-    """A launch's device outputs, and its call number (the ``ident`` its
-    collect's spans share)."""
+    """A launch's device outputs, its call number (the ``ident`` its
+    collect's spans share) and, once staged (``Synthesizer._stage``), the
+    copies to the host of every output a caller gets (``_start_fetch``'s
+    pairs)."""
 
-    __slots__ = ("call",)
+    __slots__ = ("call", "fetches")
+
+
+def _start_fetch(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[object]]:
+    """Enqueue the device→host copy of ``t`` (into pinned memory, on the
+    current stream) without waiting for it; (host tensor, event)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
+def _finish_fetch(pending: Tuple[torch.Tensor, Optional[object]]
+                  ) -> np.ndarray:
+    host, event = pending
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
+def own_rows(results: List[Dict]) -> List[Dict]:
+    """``synthesize_batch``'s results with every array copied out of its
+    call's host outputs, for a caller that keeps them past later calls:
+    each row then holds only its own trimmed bytes."""
+    return [{k: v.copy() if isinstance(v, np.ndarray) else v
+             for k, v in r.items()} for r in results]
 
 
 def quantize_pcm16(audio: torch.Tensor) -> torch.Tensor:
@@ -407,6 +443,15 @@ class Synthesizer:
         self.frames_run = 0
         self.frames_served = 0
         self.truncated = 0
+        self.pinned_fetches = 0
+        self.fetched_bytes = 0
+        # ``_stage``'s operands on the device: the μ-law decode table, and
+        # the PCM full scale as a device tensor, since CUDA divides by a
+        # host scalar as a product with its reciprocal, which is not the
+        # same bits as the division
+        self._mulaw_table = torch.from_numpy(MULAW_DECODE_TABLE).to(
+            self.device)
+        self._pcm_full_scale = torch.full((), 32767.0, device=self.device)
 
     @torch.no_grad()
     def _refresh_copies(self) -> None:
@@ -529,9 +574,13 @@ class Synthesizer:
     @torch.no_grad()
     def _launch(self, texts: List[str], duration_scale: float,
                 max_frames: Optional[int], want_mel: bool,
-                pcm_format: str = "int16"):
-        """Enqueue one batch on the device; returns (outputs, max_frames).
-        A leader first sends the call to its followers."""
+                pcm_format: str = "int16", pcm_only: bool = False,
+                to_host: bool = True):
+        """Enqueue one batch on the device and, unless ``to_host`` is False
+        (a follower, whose results nobody reads), its outputs' way to the
+        host (``_stage``; no float32 waveform under ``pcm_only``); returns
+        (outputs, max_frames). A leader first sends the call to its
+        followers."""
         if pcm_format not in ("int16", "mulaw"):
             raise ValueError(f"Unknown pcm_format {pcm_format!r}")
         self.calls += 1
@@ -555,14 +604,33 @@ class Synthesizer:
                 out = self._run(packed, scale, max_frames, want_mel,
                                 pcm_format)
                 out = _Launched((k, self._gather(v)) for k, v in out.items())
+                if to_host:
+                    self._stage(out, pcm_only)
             out.call = call
             self.frames_run += host.shape[0] * max_frames
         return out, max_frames
 
-    @staticmethod
-    def _fetch(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-        """A launch's outputs on the host (waits for the device)."""
-        return {k: v.cpu().numpy() for k, v in out.items()}
+    def _stage(self, out: _Launched, pcm_only: bool) -> None:
+        """Every output of a launch in the form a caller gets it, made on
+        the device: the outputs as synthesised (PCM or μ-law bytes, frame
+        counts, the mel) and, unless ``pcm_only``, under μ-law the int16
+        decode and the float32 waveform; each on its way to its own pinned
+        host tensor (``_start_fetch``; the tensor itself off CUDA)."""
+        outputs = dict(out)
+        if not pcm_only:
+            pcm = out["pcm"]
+            if pcm.dtype == torch.uint8:
+                pcm = outputs["audio_pcm"] = self._mulaw_table[pcm.long()]
+            outputs["audio"] = torch.div(pcm, self._pcm_full_scale)
+        out.fetches = {k: _start_fetch(v) for k, v in outputs.items()}
+
+    def _fetch(self, out: _Launched) -> Dict[str, np.ndarray]:
+        """A launch's outputs on the host: waits for their copies."""
+        host = {k: _finish_fetch(v) for k, v in out.fetches.items()}
+        if self.device.type == "cuda":
+            self.pinned_fetches += 1
+            self.fetched_bytes += sum(v.nbytes for v in host.values())
+        return host
 
     def _collect(self, out, max_frames: int, n: int, want_mel: bool,
                  pcm_only: bool = False) -> List[Dict[str, np.ndarray]]:
@@ -576,23 +644,25 @@ class Synthesizer:
     def _unpack(self, host: Dict[str, np.ndarray], max_frames: int, n: int,
                 want_mel: bool, pcm_only: bool
                 ) -> List[Dict[str, np.ndarray]]:
-        """The fetched outputs → per-utterance results (trimmed; μ-law
-        decoded and float32 copies unless ``pcm_only``)."""
+        """The fetched outputs → per-utterance results: views of each row
+        trimmed to its frames (μ-law decode and float32 waveform as
+        ``_stage`` made them; neither under ``pcm_only``)."""
         pcm = host["pcm"]  # [B, samples] int16 (or uint8 μ-law)
         mulaw = pcm.dtype == np.uint8
         totals = host["total_frames"]
+        decoded = host.get("audio_pcm")  # μ-law only
+        audio = None if pcm_only else host["audio"]
         mel = host["mel"] if want_mel else None
         results = []
         for i in range(n):
             frames = int(min(totals[i], max_frames))
-            trimmed = pcm[i, : frames * self.upsample]
+            end = frames * self.upsample
             if mulaw:
-                res = {"audio_mulaw": trimmed, "frames": frames}
+                res = {"audio_mulaw": pcm[i, :end], "frames": frames}
                 if not pcm_only:
-                    trimmed = mulaw_decode_np(trimmed)
-                    res["audio_pcm"] = trimmed
+                    res["audio_pcm"] = decoded[i, :end]
             else:
-                res = {"audio_pcm": trimmed, "frames": frames}
+                res = {"audio_pcm": pcm[i, :end], "frames": frames}
             self.frames_served += frames
             if int(totals[i]) > max_frames:
                 # the predicted length exceeds the largest frame bucket: the
@@ -603,8 +673,8 @@ class Synthesizer:
                     "Utterance %d predicted %d frames but the frame bucket "
                     "caps at %d — audio truncated (raise the frame buckets "
                     "or split the text)", i, int(totals[i]), max_frames)
-            if not pcm_only:
-                res["audio"] = trimmed.astype(np.float32) / 32767.0
+            if audio is not None:
+                res["audio"] = audio[i, :end]
             if want_mel:
                 res["mel"] = mel[i, :frames]
             results.append(res)
@@ -617,7 +687,14 @@ class Synthesizer:
                          ) -> List[Dict[str, np.ndarray]]:
         """Per-utterance dicts with trimmed ``audio`` (float32),
         ``audio_pcm`` (int16), ``frames``, ``mel`` when ``want_mel``, and
-        ``audio_mulaw`` under ``pcm_format='mulaw'``."""
+        ``audio_mulaw`` under ``pcm_format='mulaw'``.
+
+        The arrays are views of the call's padded host outputs (on CUDA
+        pinned, from PyTorch's caching host allocator), one tensor per
+        output, each going back when its last array is dropped: keeping one
+        utterance's array keeps the whole batch's, as
+        ``DataLoader(pin_memory=True)``'s batches do. A caller that keeps
+        results past later calls takes them through ``own_rows``."""
         if not texts:
             return []
         out, max_frames = self._launch(texts, duration_scale, max_frames,
@@ -631,11 +708,13 @@ class Synthesizer:
                           pcm_format: str = "int16"
                           ) -> Iterator[List[Dict[str, np.ndarray]]]:
         """Bulk synthesis with batch i+1 enqueued before batch i's results
-        are copied to the host. ``pcm_only`` skips the float32 waveform."""
+        are waited for. ``pcm_only`` skips the float32 waveform (and under
+        μ-law the int16 decode)."""
         pending = None  # (out, max_frames, n)
         for texts in batches:
             launched = (*self._launch(texts, duration_scale, max_frames,
-                                      want_mel, pcm_format), len(texts))
+                                      want_mel, pcm_format, pcm_only),
+                        len(texts))
             if pending is not None:
                 yield self._collect(*pending, want_mel, pcm_only)
             pending = launched
@@ -709,7 +788,8 @@ class Synthesizer:
         batch launch, a weight swap) until it sends ``stop``. A call that
         fails here is logged and the loop goes on, as the leader's server
         answers the request with an error and goes on serving."""
-        calls = {"launch": self._launch, "swap_params": self.swap_params}
+        calls = {"launch": functools.partial(self._launch, to_host=False),
+                 "swap_params": self.swap_params}
         while True:
             name, *args = pmesh.broadcast_object(None)
             if name == "stop":
@@ -746,8 +826,8 @@ class Synthesizer:
         max_b = max(self.batch_buckets)
         results: List[Dict[str, np.ndarray]] = []
         for i in range(0, len(flat), max_b):
-            results.extend(self.synthesize_batch(flat[i:i + max_b],
-                                                 duration_scale))
+            results.extend(own_rows(self.synthesize_batch(flat[i:i + max_b],
+                                                          duration_scale)))
         gap = np.zeros(int(self.sample_rate * gap_ms / 1000.0), np.float32)
         out: List[Dict[str, np.ndarray]] = []
         k = 0

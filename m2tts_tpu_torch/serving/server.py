@@ -207,7 +207,9 @@ def make_handler(synth, info, stream_chunk_frames: int = 64,
             stats = {"synth_calls": synth.calls,
                      "synth_frames_run": synth.frames_run,
                      "synth_frames_served": synth.frames_served,
-                     "synth_truncated": synth.truncated}
+                     "synth_truncated": synth.truncated,
+                     "synth_pinned_fetches": synth.pinned_fetches,
+                     "synth_fetched_bytes": synth.fetched_bytes}
             if batcher is not None:
                 stats["batched_requests_served"] = batcher.requests_served
                 stats["batches_run"] = batcher.batches_run

@@ -47,7 +47,8 @@ from m2tts_tpu_torch.frontend.text import TextProcessor
 from m2tts_tpu_torch.models.tts_model import M2TTS
 from m2tts_tpu_torch.ops.length_regulator import regulate_lengths
 from m2tts_tpu_torch.ops.vocoder_mm import DTYPES
-from m2tts_tpu_torch.serving.pipeline import (make_vocoder_fn,
+from m2tts_tpu_torch.serving.pipeline import (_finish_fetch, _start_fetch,
+                                              make_vocoder_fn,
                                               resolve_backend,
                                               split_text_to_budget)
 from m2tts_tpu_torch.utils.device import resolve_device
@@ -61,26 +62,6 @@ DEFAULT_HALO_FRAMES = 4
 def _scale(duration_scale) -> torch.Tensor:
     """The duration scale as a 0-d f32 tensor (a graph input)."""
     return torch.tensor(float(duration_scale), dtype=torch.float32)
-
-
-def _start_fetch(t: torch.Tensor) -> Tuple[torch.Tensor, Optional[object]]:
-    """Enqueue the device→host copy of ``t`` (into pinned memory, on the
-    current stream) without waiting for it; (host tensor, event)."""
-    if t.device.type != "cuda":
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(t.device))
-    return host, event
-
-
-def _finish_fetch(pending: Tuple[torch.Tensor, Optional[object]]
-                  ) -> np.ndarray:
-    host, event = pending
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
 
 
 class StreamingVocoder:

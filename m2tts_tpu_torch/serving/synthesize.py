@@ -142,9 +142,9 @@ def main(argv=None) -> int:
         max_b = max(synth.batch_buckets)
         results = []
         for i in range(0, len(texts), max_b):
-            results.extend(synth.synthesize_batch(
+            results.extend(pipeline.own_rows(synth.synthesize_batch(
                 texts[i:i + max_b], args.duration_scale,
-                want_mel=args.griffin_lim))
+                want_mel=args.griffin_lim)))
     elapsed = time.perf_counter() - t0
 
     out = Path(args.output)

@@ -31,9 +31,9 @@ The spans, by module (``serving/pipeline.py``, ``serving/stream_batcher.py``,
 - ``synth.launch`` (ident: the Synthesizer's call number) with the children
   ``synth.encode`` (G2P, packing, the pinned host batch), ``synth.probe``
   (the frame probe and its blocking fetch) and ``synth.enqueue`` (the
-  synthesis replay and its output clones); ``synth.collect`` with
-  ``synth.fetch`` (the wait for the device and the copy to the host) and
-  ``synth.unpack`` (trims, μ-law decode, float32 copies);
+  synthesis replay, its output clones, the outputs' final forms and the
+  enqueued copies to the host); ``synth.collect`` with ``synth.fetch`` (the
+  wait for those copies) and ``synth.unpack`` (the trims);
 - ``stream.queued`` (ident: the admission's number; parent: its pass), from
   the put on the admission queue until its pass holds the device lock;
   ``stream.admit_window`` (the coalescing window); ``stream.admit_pass``

@@ -25,8 +25,13 @@ and the CUDA graphs (``utils/graphs.py``) against ``disable_graphs()`` eager:
 the Synthesizer at three duration scales, two text sets, int16 and μ-law
 with the mel (equal, and the replays' counted launches equal eager's),
 ``synthesize_stream`` of three same-bucket batches (each result survives
-the next replay), ``swap_params`` in both dtypes capturing no new graph
-and replaying a fresh Synthesizer's PCM, ``frame_probe='host'`` against
+the next replay), the outputs made on the device and fetched by pinned
+copies (every int16 code and μ-law byte against numpy's formulas, a
+replay's results byte-equal to the old host formulas with one pinned fetch
+a call, ``pcm_only`` making no float32, results surviving later calls,
+each copy's event on the outputs' device, and with two cards a
+Synthesizer on the second one), ``swap_params`` in both dtypes capturing
+no new graph and replaying a fresh Synthesizer's PCM, ``frame_probe='host'`` against
 ``'device'`` (same buckets, 0 LSB, no graph captured after warmup), a
 stream chunk by chunk, the
 short path as one graph per length, six f32 stage-1 steps over two buckets under
@@ -82,6 +87,8 @@ from m2tts_tpu_torch.training.trainer_stage2 import Stage2Trainer
 from m2tts_tpu_torch.utils.config import Config
 from m2tts_tpu_torch.utils.params import to_flax
 from m2tts_tpu_torch.utils.torch_compat import reference_state_dict
+
+from host_formulas import host_formulas, same_results
 
 torch.set_num_threads(2)
 
@@ -731,6 +738,166 @@ def test_synthesize_stream_results_survive_the_next_replay():
         _same_out([(r["frames"], r["audio_pcm"]) for r in got],
                   [(r["frames"], r["audio_pcm"])
                    for r in s.synthesize_batch(texts, 12.0)])
+
+
+# -- outputs made on the device, fetched by pinned copies --------------------
+
+#: at STAGE_SCALE the last text passes the largest frame bucket (140 > 128
+#: frames by the f32 probe), the others fit
+STAGE_TEXTS = GRAPH_TEXTS[0] + ["the quick brown fox jumps over the lazy "
+                                "dog again and again"]
+STAGE_SCALE = 9.0
+
+
+def _fetched_bytes(out, pcm_only):
+    """What one call's pinned copies carry: each output and, unless
+    ``pcm_only``, the μ-law decode and the float32 waveform."""
+    n = out["pcm"].numel()
+    made = 0 if pcm_only else (
+        n * 2 * (out["pcm"].dtype == torch.uint8) + n * 4)
+    return made + sum(v.numel() * v.element_size() for v in out.values())
+
+
+@needs_cuda
+@pytest.mark.parametrize("want_mel", [False, True], ids=["pcm", "mel"])
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw"])
+def test_device_outputs_equal_the_host_formulas_on_cuda(pcm_format,
+                                                         want_mel):
+    """On the card: the results made on the device, fetched by pinned
+    copies and sliced, against the old host formulas on the same launch's
+    outputs (graph replays); each call counts one pinned fetch of its
+    outputs' bytes."""
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    s.synthesize_batch(STAGE_TEXTS, STAGE_SCALE, want_mel=want_mel,
+                       pcm_format=pcm_format)  # capture
+    n = len(STAGE_TEXTS)
+    fetches, nbytes = s.pinned_fetches, s.fetched_bytes
+    out, frames = s._launch(STAGE_TEXTS, STAGE_SCALE, None, want_mel,
+                            pcm_format)
+    want = host_formulas(s, out, frames, n, want_mel, False)
+    got = s._collect(out, frames, n, want_mel)
+    assert [bool(r.get("truncated")) for r in got] == [False] * 3 + [True]
+    same_results(got, want)
+    assert (s.pinned_fetches, s.fetched_bytes) == \
+        (fetches + 1, nbytes + _fetched_bytes(out, False))
+    for r in got:
+        assert r["audio"].tobytes() == (
+            r["audio_pcm"].astype(np.float32) / 32767.0).tobytes()
+
+
+@needs_cuda
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw"])
+def test_stream_pcm_only_makes_no_float32_on_cuda(pcm_format):
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    batches = [STAGE_TEXTS[:2], STAGE_TEXTS[2:]]
+    want = [s.synthesize_batch(t, STAGE_SCALE, pcm_format=pcm_format)
+            for t in batches]
+    fetches = s.pinned_fetches
+    streamed = list(s.synthesize_stream(iter(batches), STAGE_SCALE,
+                                        pcm_only=True,
+                                        pcm_format=pcm_format))
+    assert s.pinned_fetches == fetches + 2
+    key = "audio_mulaw" if pcm_format == "mulaw" else "audio_pcm"
+    for got, ref in zip(streamed, want):
+        for g, w in zip(got, ref):
+            assert "audio" not in g
+            assert ("audio_pcm" in g) is (pcm_format == "int16")
+            assert g[key].tobytes() == w[key].tobytes()
+            assert g["frames"] == w["frames"]
+
+
+@needs_cuda
+def test_results_survive_later_calls_on_cuda():
+    """A call's arrays, views of its own pinned host tensors, keep their
+    bytes through later calls in the same buckets (which reuse freed
+    blocks)."""
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    first = s.synthesize_batch(STAGE_TEXTS, STAGE_SCALE, want_mel=True)
+    kept = [{k: v.copy() for k, v in r.items()
+             if isinstance(v, np.ndarray)} for r in first]
+    for _ in range(3):
+        s.synthesize_batch(["a different text", "other words here", "b",
+                            "yet another sentence to say aloud now"],
+                           STAGE_SCALE, want_mel=True)
+    for r, k in zip(first, kept):
+        for name, v in k.items():
+            assert r[name].tobytes() == v.tobytes(), name
+
+
+@needs_cuda
+def test_conversion_is_exact_on_every_code_on_cuda():
+    """The device's float32 and μ-law decode over all 65,536 int16 codes
+    and all 256 μ-law bytes against numpy's formulas: division by a device
+    tensor is IEEE division, where a host scalar divisor would be a
+    product with its reciprocal."""
+    from m2tts_tpu_torch.ops.audio_codec import MULAW_DECODE_TABLE
+    from m2tts_tpu_torch.serving.pipeline import _Launched
+
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    codes = np.arange(-32768, 32768).astype(np.int16)
+    for pcm, decoded in ((codes, codes),
+                         (np.arange(256, dtype=np.uint8),
+                          MULAW_DECODE_TABLE)):
+        out = _Launched(pcm=torch.from_numpy(pcm.copy())[None].cuda(),
+                        total_frames=torch.zeros(1, dtype=torch.int32,
+                                                 device="cuda"))
+        s._stage(out, pcm_only=False)
+        host = s._fetch(out)
+        if pcm.dtype == np.uint8:
+            assert host["audio_pcm"][0].tobytes() == decoded.tobytes()
+        assert host["audio"][0].tobytes() == (
+            decoded.astype(np.float32) / 32767.0).tobytes()
+    assert s.pinned_fetches == 2
+
+
+@needs_cuda
+def test_pinned_copies_wait_on_the_synthesizers_device(monkeypatch):
+    """Every copy's event is recorded on the current stream of the device
+    the outputs are on, asked for by that device: an event on the current
+    device's stream would complete before a second card's copy."""
+    s = Synthesizer(_tiny_model(), **GRAPH_BUCKETS)
+    out, _ = s._launch(STAGE_TEXTS, STAGE_SCALE, None, True, "mulaw",
+                       to_host=False)
+    asked, current_stream = [], torch.cuda.current_stream
+
+    def spy(device=None):
+        asked.append(device)
+        return current_stream(device)
+
+    monkeypatch.setattr(torch.cuda, "current_stream", spy)
+    s._stage(out, pcm_only=False)
+    dev = out["pcm"].device
+    assert (dev.type, dev.index or 0) == (
+        s.device.type, s.device.index or 0)
+    assert sorted(out.fetches) == ["audio", "audio_pcm", "mel", "pcm",
+                                   "total_frames"]
+    assert [ev.device for _, ev in out.fetches.values()] == [dev] * 5
+    assert asked == [dev] * 5
+    s._fetch(out)
+
+
+@pytest.mark.skipif("torch.cuda.device_count() < 2",
+                    reason="needs two CUDA devices")
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw"])
+def test_a_second_cards_results_reach_the_host(pcm_format):
+    """A Synthesizer on cuda:1 while cuda:0 is current: each call's results,
+    copied out the moment ``_collect`` returns them, equal the host
+    formulas on the same launch's outputs, call after call. A spin kernel
+    queued first (and no probe, whose fetch would wait it out) keeps the
+    second card busy well past any wait that does not wait on it."""
+    from m2tts_tpu_torch.serving.pipeline import own_rows
+
+    assert torch.cuda.current_device() == 0
+    s = Synthesizer(_tiny_model(), device="cuda:1", **GRAPH_BUCKETS)
+    n = len(STAGE_TEXTS)
+    for _ in range(4):  # eager, capture, replays
+        with torch.cuda.device(1):
+            torch.cuda._sleep(100_000_000)
+        out, frames = s._launch(STAGE_TEXTS, STAGE_SCALE, 128, True,
+                                pcm_format)
+        got = own_rows(s._collect(out, frames, n, True))
+        same_results(got, host_formulas(s, out, frames, n, True, False))
+    assert torch.cuda.current_device() == 0
 
 
 @needs_cuda

@@ -408,9 +408,9 @@ def test_dynamic_batch_routes(models):
 
 
 def test_healthz_lists_the_work_counters(models):
-    """The Synthesizer's counters from the start, the StreamBatcher's
-    admission and device-lock counters beside its chunk counters once
-    the batcher exists."""
+    """The Synthesizer's counters from the start (the pinned copy's two
+    staying 0 on the CPU), the StreamBatcher's admission and device-lock
+    counters beside its chunk counters once the batcher exists."""
     srv = _Server(_synth(models), dynamic_batch_wait_ms=5.0)
     try:
         _, before = _get(srv.url + "/healthz")
@@ -428,14 +428,17 @@ def test_healthz_lists_the_work_counters(models):
     synth = srv.synth
     assert {k: before[k] for k in ("synth_calls", "synth_frames_run",
                                    "synth_frames_served",
-                                   "synth_truncated")} == \
+                                   "synth_truncated", "synth_pinned_fetches",
+                                   "synth_fetched_bytes")} == \
         dict(synth_calls=0, synth_frames_run=0, synth_frames_served=0,
-             synth_truncated=0)
+             synth_truncated=0, synth_pinned_fetches=0,
+             synth_fetched_bytes=0)
     assert "stream_admitted" not in before
     assert (after["synth_calls"], after["synth_frames_run"],
-            after["synth_frames_served"], after["synth_truncated"]) == \
+            after["synth_frames_served"], after["synth_truncated"],
+            after["synth_pinned_fetches"], after["synth_fetched_bytes"]) == \
         (synth.calls, synth.frames_run, synth.frames_served,
-         synth.truncated)
+         synth.truncated, 0, 0)
     assert 0 < after["synth_frames_served"] <= after["synth_frames_run"]
     assert (after["stream_admitted"], after["stream_admit_passes"]) == (1, 1)
     assert after["stream_lock_acquires"] >= 1 + \

@@ -22,6 +22,8 @@ from m2tts_tpu_torch.serving import pipeline
 from m2tts_tpu_torch.serving.pipeline import Synthesizer
 from m2tts_tpu_torch.utils.params import from_flax
 
+from host_formulas import host_formulas, same_results
+
 torch.set_num_threads(2)
 
 KW = dict(hidden_dim=32, mel_channels=16, vocoder_channels=32,
@@ -210,3 +212,106 @@ def test_from_config_on_cpu():
     res = synth.synthesize("hello world", duration_scale=SCALE)
     assert res["audio_pcm"].dtype == np.int16
     assert res["audio"].shape == (res["frames"] * 4,)
+
+
+# -- outputs made on the device, fetched to the host, sliced there ----------
+
+#: the last text passes the largest frame bucket at SCALE, so a row is cut
+HOST_TEXTS = TEXTS + ["the quick brown fox jumps over the lazy dog again "
+                      "and again"]
+
+
+@pytest.mark.parametrize("want_mel", [False, True], ids=["pcm", "mel"])
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw"])
+def test_device_outputs_equal_the_host_formulas(pair, pcm_format, want_mel):
+    """The results ``_stage`` made on the device and ``_unpack`` sliced
+    against the old host formulas on the same launch's outputs; and the
+    float32 and decoded int16 against those formulas on the returned
+    bytes."""
+    ts = pair[1]
+    out, frames = ts._launch(HOST_TEXTS, SCALE, None, want_mel, pcm_format)
+    want = host_formulas(ts, out, frames, len(HOST_TEXTS), want_mel, False)
+    got = ts._collect(out, frames, len(HOST_TEXTS), want_mel)
+    assert any(r.get("truncated") for r in got)  # the case's premise
+    assert not all(r.get("truncated") for r in got)
+    same_results(got, want)
+    for r in got:
+        if pcm_format == "mulaw":
+            assert r["audio_pcm"].tobytes() == tcodec.mulaw_decode_np(
+                r["audio_mulaw"]).tobytes()
+        assert r["audio"].tobytes() == (
+            r["audio_pcm"].astype(np.float32) / 32767.0).tobytes()
+    batch = ts.synthesize_batch(HOST_TEXTS, SCALE, want_mel=want_mel,
+                                pcm_format=pcm_format)
+    same_results(batch, want)
+
+
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw"])
+def test_stream_pcm_only_makes_no_float32(pair, pcm_format):
+    """``synthesize_stream(pcm_only=True)``: no ``audio`` (nor, under
+    μ-law, ``audio_pcm``); the PCM as the batch path gives it."""
+    ts = pair[1]
+    batches = [HOST_TEXTS[:2], HOST_TEXTS[2:]]
+    streamed = list(ts.synthesize_stream(iter(batches), SCALE,
+                                         pcm_only=True,
+                                         pcm_format=pcm_format))
+    key = "audio_mulaw" if pcm_format == "mulaw" else "audio_pcm"
+    for got, texts in zip(streamed, batches):
+        want = ts.synthesize_batch(texts, SCALE, pcm_format=pcm_format)
+        for g, w in zip(got, want):
+            assert "audio" not in g
+            assert ("audio_pcm" in g) is (pcm_format == "int16")
+            assert g[key].tobytes() == w[key].tobytes()
+            assert (g["frames"], g.get("truncated")) == \
+                (w["frames"], w.get("truncated"))
+
+
+def test_results_survive_the_next_call(pair):
+    """A call's arrays, views of its own host outputs, keep their bytes
+    through a later call on other texts in the same buckets."""
+    ts = pair[1]
+    first = ts.synthesize_batch(HOST_TEXTS, SCALE, want_mel=True)
+    kept = [{k: v.copy() for k, v in r.items()
+             if isinstance(v, np.ndarray)} for r in first]
+    ts.synthesize_batch(["a different text", "other words here", "b",
+                         "yet another sentence to say aloud now"],
+                        SCALE, want_mel=True)
+    for r, k in zip(first, kept):
+        for name, v in k.items():
+            assert r[name].tobytes() == v.tobytes(), name
+
+
+def test_conversion_is_exact_on_every_code(pair):
+    """``_stage`` over all 65,536 int16 codes and all 256 μ-law bytes
+    against numpy's ``astype(np.float32) / 32767.0`` and the decode
+    table; off CUDA nothing goes through the pinned copy."""
+    ts = pair[1]
+    codes = np.arange(-32768, 32768).astype(np.int16)
+    for pcm, decoded in ((codes, codes),
+                         (np.arange(256, dtype=np.uint8),
+                          tcodec.MULAW_DECODE_TABLE)):
+        out = pipeline._Launched(
+            pcm=torch.from_numpy(pcm.copy())[None],
+            total_frames=torch.zeros(1, dtype=torch.int32))
+        ts._stage(out, pcm_only=False)
+        host = ts._fetch(out)
+        if pcm.dtype == np.uint8:
+            assert host["audio_pcm"][0].tobytes() == decoded.tobytes()
+        assert host["audio"][0].tobytes() == (
+            decoded.astype(np.float32) / 32767.0).tobytes()
+    assert (ts.pinned_fetches, ts.fetched_bytes) == (0, 0)
+
+
+def test_kept_results_hold_only_their_own_rows(pair):
+    """``own_rows`` and ``synthesize_batch_long`` (which keeps every call's
+    results until the join) leave each array its own trimmed bytes, none a
+    view of a call's padded outputs."""
+    ts = pair[1]
+    rows = pipeline.own_rows(ts.synthesize_batch(HOST_TEXTS, SCALE,
+                                                 want_mel=True))
+    same_results(rows, ts.synthesize_batch(HOST_TEXTS, SCALE, want_mel=True))
+    long = " ".join(["the quick brown fox jumps over the lazy dog."] * 3)
+    for r in rows + ts.synthesize_batch_long([long, "hello"], SCALE):
+        for k, v in r.items():
+            if isinstance(v, np.ndarray):
+                assert v.base is None and v.flags.owndata, k

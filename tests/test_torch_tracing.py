@@ -10,7 +10,9 @@ concurrent ``stream()`` calls the StreamBatcher records one
 ``stream.queued`` per request, each naming a recorded admission pass, its
 counters count every request and at least every device call, and the
 spans read as never overlapping do not overlap. Every thread is a daemon,
-every join has a timeout."""
+every join has a timeout. Each test reads only the spans of threads it
+did not find running: a batcher another test module left running (the
+server's handler keeps its batchers) records spans of its own."""
 
 import threading
 import tracemalloc
@@ -66,6 +68,15 @@ def tracing():
         profiling.drain()
 
 
+@pytest.fixture
+def ours():
+    """``ours(spans)``: the spans of the test's own threads, leaving out
+    those of every other thread already running when the test started."""
+    me = threading.get_ident()
+    foreign = {t.ident for t in threading.enumerate()} - {me}
+    return lambda spans: [s for s in spans if s[3] not in foreign]
+
+
 def _within(child, parent) -> bool:
     return parent[4] <= child[4] <= child[5] <= parent[5]
 
@@ -104,10 +115,10 @@ def test_span_on_records_nested_spans_and_drain_empties(tracing):
     assert profiling.drain() == []
 
 
-def test_synthesize_batch_spans_nest_under_one_call(synth, tracing):
+def test_synthesize_batch_spans_nest_under_one_call(synth, tracing, ours):
     synth.synthesize_batch(TEXTS, SCALE)
     synth.synthesize_batch(TEXTS[:1], SCALE)
-    spans = profiling.drain()
+    spans = ours(profiling.drain())
     by_call = {}
     for s in spans:
         by_call.setdefault(s[1], {})[s[0]] = s
@@ -183,7 +194,7 @@ def _stream_all(sb, texts):
     return got
 
 
-def test_stream_batcher_spans_and_counters(model, tracing):
+def test_stream_batcher_spans_and_counters(model, tracing, ours):
     streamer = StreamingSynthesizer(model, device="cpu", **STREAM_KW)
     # a wide admission window, so concurrent callers share passes
     sb = StreamBatcher(streamer, max_streams=4, max_wait_ms=200.0)
@@ -191,7 +202,7 @@ def test_stream_batcher_spans_and_counters(model, tracing):
         _stream_all(sb, STREAM_TEXTS)
     finally:
         sb.close()
-    spans = profiling.drain()
+    spans = ours(profiling.drain())
     # a text over the streamer's phoneme budget is admitted a sentence
     # chunk at a time
     sent = sum(len(streamer.split_long(t)) for t in STREAM_TEXTS)
@@ -220,7 +231,7 @@ def test_stream_batcher_spans_and_counters(model, tracing):
             assert _within(s, dispatches[s[2]])
 
 
-def test_stream_batcher_records_nothing_with_tracing_off(model):
+def test_stream_batcher_records_nothing_with_tracing_off(model, ours):
     profiling.disable()
     profiling.drain()
     streamer = StreamingSynthesizer(model, device="cpu", **STREAM_KW)
@@ -229,5 +240,5 @@ def test_stream_batcher_records_nothing_with_tracing_off(model):
         _stream_all(sb, STREAM_TEXTS[:4])
     finally:
         sb.close()
-    assert profiling.drain() == []
+    assert ours(profiling.drain()) == []
     assert sb.admitted == 4 and sb.lock_acquires >= sb.admit_passes > 0
