@@ -38,7 +38,6 @@ import numpy as np
 SHIFT = 16
 MISSING = 2.0
 SHORT = 72  # frames of one streaming window (64-frame chunk, 4-frame halos)
-NAMES = ("err_typical", "err_worst")
 
 
 def frame_errors(served: np.ndarray, ref: np.ndarray, hop: int,
@@ -93,11 +92,12 @@ def numbers(pairs: Iterable[Tuple[np.ndarray, np.ndarray]], hop: int,
 
 
 def checks(nums: Dict[str, float], limits: Dict) -> Tuple[bool, Dict]:
-    """(correct, {name: {value, limit}}): each number the cell's limits name
-    at or under its limit, and at least ``min_compared`` utterances
-    compared. A cell leaves out a number that does not separate its
-    program's readings from its control's."""
-    names = [k for k in NAMES if k in limits]
+    """(correct, {name: {value, limit}}): each number the cell's limits file
+    names (every key but ``min_compared``, in the file's order) at or under
+    its limit, and at least ``min_compared`` answers (utterances, or a
+    training cell's steps) compared. A cell leaves out a number that does
+    not separate its program's readings from its control's."""
+    names = [k for k in limits if k != "min_compared"]
     out = {k: {"value": nums[k], "limit": limits[k]} for k in names}
     out["compared"] = {"value": nums["compared"],
                        "limit": limits["min_compared"]}

@@ -3,9 +3,11 @@ that opens ``StreamBatcher.stream`` and drains its chunks, in process and
 without HTTP, the batcher built as the server's ``/synthesize_stream``
 route builds it under ``--dynamic-batch``.
 
-End to end: ``first_chunk_p95_ms``, the 95th percentile over every request
-sent in the window of the time from its scheduled send to its first chunk
-in the client's hands (a failed request counts as missing). The mix's
+End to end: ``first_chunk_p50_ms``, the median over every request sent in
+the window of the time from its scheduled send to its first chunk in the
+client's hands (a failed request counts as missing). Its 95th percentile,
+which swings with the host's stalls far more than the median, is read per
+layer (``first_chunk_p95_ms.stream``) and printed in every run. The mix's
 ``clients`` threads, started in set-up, each drive one request at a time
 from its send to its last chunk, as a server's handler threads do; the
 run reports how many requests ever waited for a free one. Traced: each
@@ -240,14 +242,16 @@ def run(ctx) -> Dict:
         say(f"request {i} failed: {clients[i].error}")
     first = np.array([(c.first - c.sched) * 1e3 if c.first is not None
                       and c.error is None else np.inf for c in clients])
-    p95 = float(np.percentile(first, 95))
+    p50, p95 = (float(np.percentile(first, q)) for q in (50, 95))
     quarters = [float(np.percentile(q, 95)) for q in np.array_split(first, 4)]
+    say(f"first chunk (ms): p50 {p50!r}, p95 {p95!r}")
     say("first-chunk p95 by quarter of the sends (ms): "
         + ", ".join(f"{q:.3f}" for q in quarters))
     record = {
         "admit_ms": [(c.admit - c.sched) * 1e3 for c in clients
                      if c.admit is not None],
         "chunks_emitted": c1[0] - c0[0], "chunk_dispatches": c1[1] - c0[1],
+        "first_chunk_p95_ms": p95,
         "first_chunk_p95_by_quarter_ms": quarters}
     if ctx.trace:
         win.add_spans("admit", calls["admit"])
@@ -276,6 +280,6 @@ def run(ctx) -> Dict:
     say(f"worst compared utterance: {nums['worst']}")
     say(f"compared (frames, p50, p75, p90): {nums.pop('each')}")
     return {"attempted": n, "failed": len(failed),
-            "metrics": {"first_chunk_p95_ms": p95},
+            "metrics": {"first_chunk_p50_ms": p50},
             "numbers": nums, "record": record, "window": win,
             "memory_peak_bytes": peak}

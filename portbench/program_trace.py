@@ -49,6 +49,7 @@ them as they were.
 from __future__ import annotations
 
 import argparse
+import bisect
 import functools
 import gc
 import importlib
@@ -292,6 +293,34 @@ def slowest(spans, program, n: int = 12) -> List:
              roles.get(s[3], "caller")] for s in top]
 
 
+#: the farthest the device's clock may lie from the host's (ns)
+MAX_CLOCK_OFFSET_NS = 5_000_000
+
+
+def _marked_copies(pinned: List, stamps: List[float]) -> Optional[List]:
+    """Of the pinned copies ``pinned`` ((start, end) on the device's
+    clock, by start), the ``len(stamps)`` consecutive ones made at the host
+    stamps ``stamps`` (on the profiler's host clock): those whose starts
+    keep the steadiest distance from the stamps, within
+    ``MAX_CLOCK_OFFSET_NS``. The marks' copies follow each other within
+    microseconds, a burst no call's copies of megabytes repeats; None where
+    no run of copies lies that near."""
+    n = len(stamps)
+    starts = [s for s, _ in pinned]
+    first = bisect.bisect_left(starts, stamps[0] - MAX_CLOCK_OFFSET_NS)
+    best, got = None, None
+    for j in range(first, len(pinned) - n + 1):
+        d = [starts[j + i] - stamps[i] for i in range(n)]
+        if d[0] > MAX_CLOCK_OFFSET_NS:
+            break
+        if max(abs(x) for x in d) > MAX_CLOCK_OFFSET_NS:
+            continue
+        spread = max(d) - min(d)
+        if best is None or spread < best:
+            best, got = spread, pinned[j:j + n]
+    return got
+
+
 class _TracedWindow(Window):
     """The driver's window with the program's tracer on inside it, the
     collector's passes and the process's CPU time counted over it, and
@@ -328,8 +357,9 @@ class _TracedWindow(Window):
             got.append((a, time.perf_counter_ns()))
         self.marks[tag] = got
         if torch.device(self.device).type == "cuda":
-            # synchronous copies to pinned memory, which nothing else in a
-            # run makes: the device's clock against perf_counter
+            # synchronous copies to pinned memory: the device's clock
+            # against perf_counter (a bulk call makes pinned copies too;
+            # ``_device_offsets`` tells the marks' apart by their stamps)
             dev = torch.zeros(1, device=self.device)
             host = torch.empty(1, pin_memory=True)
             got = []
@@ -439,14 +469,18 @@ class _TracedWindow(Window):
         the pinned copies ``_mark`` made: a copy made between ``a`` and
         ``b`` on perf_counter that ran from ``ks`` to ``ke`` on the
         device's clock puts the offset between ``at(a) - ks`` and
-        ``at(b) - ke``."""
+        ``at(b) - ke``. The marks' copies are found by their host stamps
+        among every pinned copy of the run (``_marked_copies``)."""
         pinned = sorted((s, e) for n, s, e in self.kernels
                         if "DtoH" in n and "Pinned" in n)
-        if "gpuclock0" not in self.marks or len(pinned) < 2 * self.MARKS:
+        if "gpuclock0" not in self.marks:
             return None
         out = []
-        for tag, got in (("gpuclock0", pinned[:self.MARKS]),
-                         ("gpuclock1", pinned[-self.MARKS:])):
+        for tag in ("gpuclock0", "gpuclock1"):
+            got = _marked_copies(pinned, [at(a) for a, _ in
+                                          self.marks[tag]])
+            if got is None:
+                return None
             lo, hi = max(((at(a) - ks, at(b) - ke) for (a, b), (ks, ke)
                           in zip(self.marks[tag], got)),
                          key=lambda r: r[0] - r[1])

@@ -39,7 +39,7 @@ def main(argv=None) -> int:
         print(json.dumps({"rate_per_s": rate, "failed": out["failed"],
                           "attempted": out["attempted"],
                           "first_chunk_p95_ms":
-                              out["metrics"]["first_chunk_p95_ms"]["value"],
+                              ctx.last_record["first_chunk_p95_ms"],
                           "by_quarter_ms": q,
                           "correct": out["correct"]}), flush=True)
     return 0

@@ -107,3 +107,18 @@ def test_broken_timed_path_is_not_correct(tiny, name, fault):
     assert result["checks"]["compared"]["value"] >= 8
     assert result["correct"] is (fault is None), result["checks"]
     assert np.isfinite(list(result["metrics"].values())[0]["value"])
+
+
+@pytest.mark.parametrize("name", ["flagship.bulk", "flagship.stream"])
+def test_serving_cells_check_the_same_numbers(name):
+    """``compare.checks`` takes the numbers a limits file names: the
+    serving cells' checks give ``err_typical``, ``err_worst`` and
+    ``compared``, in that order, beside their limits."""
+    limits = load_json("limits", name)
+    nums = {"err_typical": 0.01, "err_worst": 0.02, "compared": 50}
+    ok, checks = compare.checks(nums, limits)
+    assert ok and list(checks) == ["err_typical", "err_worst", "compared"]
+    assert [c["limit"] for c in checks.values()] == [
+        limits["err_typical"], limits["err_worst"], limits["min_compared"]]
+    assert not compare.checks(dict(nums, err_worst=1.0), limits)[0]
+    assert not compare.checks(dict(nums, compared=39), limits)[0]

@@ -18,10 +18,13 @@ def test_whole_name_check():
 def test_a_run_loads_no_jax():
     code = ("import sys; import portbench.run, portbench.readings, "
             "portbench.sweep; import portbench.drivers.bulk, "
-            "portbench.drivers.stream; "
+            "portbench.drivers.stream, portbench.drivers.gan_train, "
+            "portbench.train_faults, portbench.train_readings, "
+            "portbench.train_look; "
             "from portbench.cellkit import Cell; "
             "import m2tts_tpu_torch.serving.pipeline, "
-            "m2tts_tpu_torch.serving.stream_batcher; "
+            "m2tts_tpu_torch.serving.stream_batcher, "
+            "m2tts_tpu_torch.training.trainer_stage2; "
             "from portbench.harness import forbidden_modules; "
             "print(forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -44,6 +47,7 @@ def test_reference_imports_nothing_of_the_program():
                                                "jax"), (path, n)
     code = ("import sys; import portbench.reference.model, "
             "portbench.reference.text, portbench.reference.quant, "
+            "portbench.reference.gan, "
             "portbench.weights; print(sorted(m for m in sys.modules "
             "if m.split('.')[0].startswith('m2tts')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

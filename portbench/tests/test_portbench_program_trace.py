@@ -61,3 +61,16 @@ def test_a_plain_run_records_no_program_span(tiny):
     result = run_cell(MAN, _ctx(tiny, "flagship.bulk", False))
     assert profiling.drain() == [] and "program" not in result
     assert not profiling.tracing()
+
+
+def test_marks_found_by_their_host_stamps():
+    """The clock marks' pinned copies are told from a bulk call's by their
+    host stamps: a burst of copies microseconds apart at the stamps, not
+    the first or last copies of the run."""
+    stamps = [1_000_000_000 + 20_000 * i for i in range(5)]
+    marks = [(s + 150_000, s + 152_000) for s in stamps]  # the device lags
+    calls = [(t, t + 900_000) for t in
+             (1_000_050_000, 1_001_000_000, 1_002_000_000)]
+    pinned = sorted(marks + calls + [(990_000_000, 990_900_000)])
+    assert program_trace._marked_copies(pinned, stamps) == marks
+    assert program_trace._marked_copies(calls, stamps) is None

@@ -96,3 +96,42 @@ def _scale_vocoder_biases(sd: Dict[str, torch.Tensor], s: Sizes,
         ref.vocode(zeroed, s, ref.decode(sd, s, x), taps=taps)
     for k in names:
         sd[k] = sd[k] * (VOCODER_BIAS * taps[k] / AFFINE_STD)
+
+
+DISC_TAG = 0x5D15C  # the discriminator's stream of the run's seed
+DISC_PROBE = 8192  # samples of the input that sets its biases' scale
+
+
+@torch.no_grad()
+def make_disc_state_dict(seed: int, device, spectral: bool = True
+                         ) -> Dict[str, torch.Tensor]:
+    """The float32 state dict of the stage-2 multi-scale discriminator from
+    ``seed`` (a stream of its own): normal conv weights with a fan-in gain
+    of √2 (fan-in: input channels a group times the kernel), as the
+    model's init rule, and each bias, which the rule starts at 0, drawn as
+    N(0, ``VOCODER_BIAS`` × the RMS of its conv's output), that RMS read
+    once from the reference with the biases at 0 on N(0, 0.3²) audio, so a
+    dropped or misplaced bias changes the logits."""
+    from portbench.reference import gan
+
+    spec = gan.disc_param_spec()
+    g = seed_generator((int(seed) + DISC_TAG) % (2 ** 63), device)
+    n = sum(math.prod(shape) for _, shape, _ in spec)
+    normal = torch.randn(n, generator=g, device=device)
+    sd, i = {}, 0
+    for name, shape, kind in spec:
+        k = math.prod(shape)
+        x = normal[i:i + k].view(shape)
+        i += k
+        if kind == "conv":
+            x = x * math.sqrt(2.0 / (shape[1] * shape[2]))
+        sd[name] = x.contiguous()
+    biases = [k for k in sd if k.endswith(".bias")]
+    zeroed = dict(sd, **{k: torch.zeros_like(sd[k]) for k in biases})
+    probe = 0.3 * torch.randn((2, DISC_PROBE), generator=g, device=device)
+    taps: Dict[str, float] = {}
+    with ref.exact():
+        gan.discriminate(zeroed, probe, spectral=spectral, taps=taps)
+    for k in biases:
+        sd[k] = sd[k] * (VOCODER_BIAS * taps[k])
+    return sd

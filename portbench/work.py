@@ -131,3 +131,78 @@ class ModelFlops:
 
     def utterance(self, phonemes: int, frames: int) -> float:
         return self.enc(phonemes) + self.dec(frames)
+
+
+class GanStepFlops:
+    """FLOPs of one fused stage-2 GAN step at a bucket's shapes, as
+    ``FlopCounterMode`` counts them on meta tensors through the reference
+    (``reference/gan.py``), the passes the fused step's algorithm needs and
+    no recomputation: the discriminator step's generator forward without
+    gradients; the discriminator on ``[real; fake]`` with its backward over
+    its weights; the generator step's generator forward; the discriminator
+    on the fake with its backward into the generator (its weights
+    constants) and on the real forward only; the loss terms' products.
+    FFTs and elementwise work (dropout, the optimizers, the EMA) are not
+    products and are not counted."""
+
+    def __init__(self, model_cfg: Dict, training: Dict,
+                 sample_rate: int = 22050, n_mels: int = 80):
+        from portbench.reference import gan
+        from portbench.reference import model as ref
+
+        self.gan, self.ref = gan, ref
+        self.sizes = ref.Sizes(model_cfg)
+        self.B = int(training["batch_size"])
+        self.r = gan.Recipe(training, self.sizes.upsample, sample_rate,
+                            n_mels)
+        self.spectral = bool(training.get("discriminator_spectral_norm"))
+        self._counts: Dict[Tuple[int, int], int] = {}
+
+    def step(self, text: int, frames: int) -> int:
+        key = (int(text), int(frames))
+        if key not in self._counts:
+            self._counts[key] = self._count(*key)
+        return self._counts[key]
+
+    def _count(self, S: int, T: int) -> int:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        gan, s, r, B = self.gan, self.sizes, self.r, self.B
+        meta = {"device": "meta"}
+
+        def params(spec, grad):
+            return {n: torch.empty(shape, **meta).requires_grad_(grad)
+                    for n, shape, _ in spec}
+        g = params(self.ref.param_spec(s), True)
+        d = params(gan.disc_param_spec(), True)
+        dc = {k: v.detach() for k, v in d.items()}
+        batch = {"phoneme_ids": torch.zeros((B, S), dtype=torch.long, **meta),
+                 "text_lengths": torch.full((B,), S, dtype=torch.long,
+                                            **meta),
+                 "durations": torch.zeros((B, S), **meta),
+                 "mel": torch.empty((B, T, s.mel), **meta),
+                 "mel_lengths": torch.full((B,), T, dtype=torch.long, **meta)}
+        offsets = torch.zeros((B,), dtype=torch.int32, **meta)
+        target = torch.empty((B, r.seg_frames * r.upsample), **meta)
+
+        def nodrop(x):
+            return x
+        with FlopCounterMode(display=False) as counter:
+            with torch.no_grad():
+                fake = gan.generate(g, s, batch, offsets, r.seg_frames,
+                                    nodrop)[2]
+            logits, _ = gan.discriminate(d, torch.cat([target, fake]),
+                                         spectral=self.spectral)
+            loss = gan.lsgan_d([l[:B] for l in logits],
+                               [l[B:] for l in logits])
+            torch.autograd.grad(loss, list(d.values()))
+            mel, dur, audio = gan.generate(g, s, batch, offsets,
+                                           r.seg_frames, nodrop)
+            total = sum(gan.losses_of(mel, dur, audio, target, batch,
+                                      r).values())
+            fl, ff = gan.discriminate(dc, audio, spectral=self.spectral)
+            with torch.no_grad():
+                _, rf = gan.discriminate(dc, target, spectral=self.spectral)
+            total = total + gan.lsgan_g(fl) + gan.feature_matching(rf, ff)
+            torch.autograd.grad(total, list(g.values()))
+        return int(counter.get_total_flops())
